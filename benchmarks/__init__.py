@@ -1,4 +1,4 @@
-"""Benchmark suite for the TPU-native framework.
+"""Benchmark suite.
 
 Mirrors the reference's ``Benchmark/`` package (SURVEY.md section 2.7):
 
@@ -10,6 +10,8 @@ Mirrors the reference's ``Benchmark/`` package (SURVEY.md section 2.7):
   (``Benchmark/quick_benchmark.py``).
 * ``ik_benchmark`` — IK solver success/latency comparison
   (``Benchmark/ik_benchmark.py``).
+* ``kernel_vs_xla`` — the GPU rollout kernel against the XLA scan, and
+  the MPC tick with its launches per iteration (GPU only).
 
 Run as modules: ``python -m benchmarks.quick_benchmark``. Each writes a
 JSON artifact next to itself (override with ``--output``).

@@ -35,8 +35,7 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-os.environ.setdefault("JAX_PLATFORMS", "cpu")
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.jax_cache")
+os.environ.setdefault("JAX_PLATFORMS", "cpu")  # an f64 accuracy study
 
 import numpy as np  # noqa: E402
 

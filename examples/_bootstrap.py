@@ -5,7 +5,6 @@ import os
 import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.jax_cache")
 
 
 def parse_args(description: str) -> argparse.Namespace:
@@ -20,4 +19,7 @@ def parse_args(description: str) -> argparse.Namespace:
             jax.config.update("jax_platforms", "cpu")
         except RuntimeError:
             pass
+    from manipulapy_tpu.utils.config import configure_cache
+
+    configure_cache()
     return args

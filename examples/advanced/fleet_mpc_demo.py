@@ -1,5 +1,5 @@
 """Advanced: fleet MPC — heterogeneous robots on a mesh, and the batched
-fused solver at production scale.
+tracking solver at production scale.
 
 No reference counterpart (the reference is single-GPU, single-robot at a
 time; its >1 kHz control claim is ``paper/paper.md:77-81``). Three phases:
@@ -9,15 +9,13 @@ time; its >1 kHz control claim is ``paper/paper.md:77-81``). Three phases:
    available device, fleet cost reduced with an explicit psum.
 2. **Scenario sweep** — the same fleet round at growing scenarios/robot,
    showing throughput scale.
-3. **Production scale (TPU)** — the batched fused tracking solver
-   (``mpc/fused_batch.py``): 1024 Panda H=50 iLQR problems per launch
-   with per-scenario goals, line search, and Levenberg regularization —
-   measured ~100k solves/s on one v5e chip (a 1 kHz control loop for a
-   fleet of ~100 robots from a single chip, with headroom to 16k+).
+3. **Production scale (GPU)** — the batched tracking solver
+   (``mpc/tracking.py``): 1024 Panda H=50 iLQR problems per call with
+   per-scenario goals, line search, and Levenberg regularization.
 
 Saves a cost-convergence plot to ``examples/out/fleet_mpc.png``.
 On a CPU-only host run ``--virtual 8`` for an 8-device virtual mesh; on
-a TPU slice the same code shards over real chips.
+a multi-GPU host the same code shards over the cards.
 """
 
 import sys, os; sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", ".."))
@@ -30,13 +28,16 @@ p.add_argument("--quick", action="store_true", help="small shapes for smoke test
 p.add_argument("--cpu", action="store_true", help="force the CPU backend")
 args, _ = p.parse_known_args()
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.jax_cache")
 import jax
 
 if args.virtual or args.cpu:
     jax.config.update("jax_platforms", "cpu")
     if args.virtual:
         jax.config.update("jax_num_cpu_devices", args.virtual)
+
+from manipulapy_tpu.utils.config import configure_cache
+
+configure_cache()
 
 import jax.numpy as jnp
 import numpy as np
@@ -78,7 +79,7 @@ us0 = jnp.zeros((R, S, H, n))
 
 print(f"solving {R * S} MPC problems (H={H}) over a {mesh.devices.size}-device mesh...")
 us, costs, fleet_cost = fleet_mpc_round(fleet, mesh, x0, us0, q_goals, params)
-print(f"fleet mean cost (psum-reduced over the mesh): {float(fleet_cost):.4f}")
+print(f"fleet mean cost (pmean-reduced over the mesh): {float(fleet_cost):.4f}")
 for r_idx, name in enumerate(names):
     print(f"  {name:>8}: per-scenario costs "
           f"min {float(costs[r_idx].min()):.3f} / max {float(costs[r_idx].max()):.3f}")
@@ -105,15 +106,15 @@ for S2 in sweep:
     dt_s = time.perf_counter() - t0
     print(f"{S2:>8} {R*S2:>9} {dt_s*1e3:>8.1f} ms {R*S2/dt_s:>12,.0f}")
 
-# -- Phase 3: batched fused solver at production scale (TPU) -----------------
+# -- Phase 3: batched solver at production scale (GPU) -----------------------
 cost_hist = None
-if jax.default_backend() == "tpu" and not args.quick:
+if jax.default_backend() == "gpu" and not args.quick:
     print()
     print("=" * 72)
-    print("Phase 3: batched fused solver — 1024 Panda H=50 solves per launch")
+    print("Phase 3: batched tracking solver — 1024 Panda H=50 solves per call")
     print("=" * 72)
     from manipulapy_tpu.models import robot_data
-    from manipulapy_tpu.mpc.fused_batch import build_batch_tracking_mpc
+    from manipulapy_tpu.mpc import build_batch_tracking_mpc
 
     panda7 = robot_data.load_robot("panda", tip_link="panda_hand", chain_joints_only=True)
     n7 = panda7.num_joints
@@ -128,7 +129,7 @@ if jax.default_backend() == "tpu" and not args.quick:
     mpc = build_batch_tracking_mpc(panda7, goals, B, H50, dt=0.01, iterations=4)
     out = jax.block_until_ready(mpc.solve(x0b, us0b))
     print(f"  build + first solve: {time.perf_counter()-t0:.1f} s "
-          f"(remote compile service; steady-state below)")
+          f"(compile included; steady-state below)")
 
     # Convergence narrative: cost distribution per extra iLQR iteration.
     cost_hist = []
@@ -145,7 +146,7 @@ if jax.default_backend() == "tpu" and not args.quick:
         out = mpc.solve(x0b, us0b)
     jax.block_until_ready(out)
     per_call = (time.perf_counter() - t0) / reps
-    print(f"  steady state: {per_call*1e3:.2f} ms per {B}-scenario launch = "
+    print(f"  steady state: {per_call*1e3:.2f} ms per {B}-scenario call = "
           f"{B/per_call:,.0f} solves/s  ({per_call/B*1e6:.1f} us per full "
           f"H=50 4-iteration iLQR solve)")
     print(f"  re-target check: goals are a runtime argument — "
@@ -155,7 +156,7 @@ if jax.default_backend() == "tpu" and not args.quick:
     jax.block_until_ready(mpc.solve(x0b, us0b, goals2))
     print(f"    (re-targeted 1024 scenarios in {(time.perf_counter()-t0)*1e3:.1f} ms wall)")
 else:
-    print("\n(Phase 3 needs the TPU backend and full mode — rerun on-chip without --quick)")
+    print("\n(Phase 3 needs a GPU and full mode — rerun on the card without --quick)")
 
 # -- Plot artifact -----------------------------------------------------------
 try:
@@ -179,11 +180,11 @@ try:
         axes[1].plot(its, p95s, "s--", label="p95")
         axes[1].set_xlabel("iLQR iterations")
         axes[1].set_ylabel("cost (1024 Panda scenarios)")
-        axes[1].set_title("Batched fused solver convergence")
+        axes[1].set_title("Batched tracking solver convergence")
         axes[1].legend()
     else:
         axes[1].axis("off")
-        axes[1].text(0.5, 0.5, "Phase 3 runs on TPU", ha="center")
+        axes[1].text(0.5, 0.5, "Phase 3 runs on a GPU", ha="center")
     out_png = os.path.join(OUT_DIR, "fleet_mpc.png")
     fig.savefig(out_png, dpi=120, bbox_inches="tight")
     print(f"\nplot saved: {out_png}")

@@ -1,23 +1,23 @@
-"""Advanced: TPU acceleration walkthrough — the XLA twin of the
+"""Advanced: GPU acceleration walkthrough — the JAX twin of the
 reference's ``gpu_acceleration_advanced_demo.py``.
 
 The reference's demo teaches CUDA speedup vs problem size and the CPU
-threshold below which the GPU loses (``path_planning.py:457-492``). The
-TPU story replaces the threshold machinery with three phases:
+threshold below which the GPU loses (``path_planning.py:457-492``); here
+the GPU kernel has no such threshold (``ops/dispatch.py``).
+Three phases:
 
 1. **Batch sweep** — one jit-compiled exact forward-dynamics program,
-   swept over the batch axis until the chip saturates: throughput grows
-   ~linearly, there is no CPU/GPU crossover to manage.
-2. **Engine ladder** — the same rollout workload through the three
-   engines (generic vmapped scan -> cgen fused step -> Pallas VMEM-carry
-   kernel with tiled IO), the dispatch ladder
-   ``trajectory.forward_dynamics_trajectory`` climbs automatically.
+   swept over the batch axis until the device saturates.
+2. **Engine ladder** — the same rollout workload through the engines
+   (generic vmapped scan -> cgen fused step -> whole-horizon GPU
+   kernel), the ladder ``trajectory.forward_dynamics_trajectory`` climbs
+   through ``ops/dispatch.py``.
 3. **Pipeline** — trajectory generation + inverse dynamics + forward
    rollout end to end, timed against the reference's published CPU
    baselines (``README.md:429-444``).
 
-Saves a throughput plot to ``examples/out/tpu_acceleration.png``.
-Run: ``python examples/advanced/tpu_acceleration_demo.py [--quick] [--cpu]``.
+Saves a throughput plot to ``examples/out/gpu_acceleration.png``.
+Run: ``python examples/advanced/gpu_acceleration_demo.py [--quick] [--cpu]``.
 """
 
 import sys, os; sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
@@ -77,7 +77,7 @@ for B in batches:
 ref_fd_rate = 1.0 / 1.17e-3  # reference exact CPU path, README.md:442
 print(f"\nreference exact-dynamics CPU rate: {ref_fd_rate:,.0f} evals/s "
       f"(1.17 ms/call, README.md:442)")
-print(f"this chip at the largest batch:    {sweep_rates[-1]:,.0f} evals/s "
+print(f"this device at the largest batch:  {sweep_rates[-1]:,.0f} evals/s "
       f"({sweep_rates[-1]/ref_fd_rate:,.0f}x)")
 
 # -- Phase 2: engine ladder --------------------------------------------------
@@ -115,18 +115,16 @@ cgen = build_rollout(m32, dt=0.01, intRes=1)
 engine_row("cgen fused step (XLA scan)", lambda: cgen(q0, dq0, taus)[0],
            "(constant-folded SoA step program)")
 
-if jax.default_backend() == "tpu":
-    from manipulapy_tpu.ops.pallas_rollout import build_pallas_rollout, stage_batch
+from manipulapy_tpu.ops import dispatch
 
-    pallas = build_pallas_rollout(m32, dt=0.01, intRes=1)
-    engine_row("Pallas VMEM-carry", lambda: pallas(q0, dq0, taus)[0],
-               "(state in VMEM across the horizon)")
-    tiled = build_pallas_rollout(m32, dt=0.01, intRes=1, tiled_io=True)
-    q0t, dq0t, taust = stage_batch(q0), stage_batch(dq0), stage_batch(taus)
-    engine_row("Pallas tiled IO", lambda: tiled(q0t, dq0t, taust)[0],
-               "(kernel-native layout, no staging transposes)")
+if dispatch.rollout_kernel_wanted(jnp.float32):
+    from manipulapy_tpu.ops.triton_rollout import build_triton_rollout
+
+    kernel = build_triton_rollout(m32, dt=0.01, intRes=1)
+    engine_row("whole-horizon GPU kernel", lambda: kernel(q0, dq0, taus)[0],
+               "(one thread per scenario, state in registers)")
 else:
-    print("  (Pallas rows need the TPU backend — rerun without --cpu)")
+    print(f"  (the GPU kernel row needs a GPU backend; this is {jax.default_backend()})")
 
 # -- Phase 3: end-to-end pipeline -------------------------------------------
 print()
@@ -165,7 +163,7 @@ try:
     import matplotlib.pyplot as plt
 
     fig, ax = plt.subplots(figsize=(7, 4.5))
-    ax.loglog(batches, sweep_rates, "o-", label="exact forward dynamics (this chip)")
+    ax.loglog(batches, sweep_rates, "o-", label="exact forward dynamics (this device)")
     ax.axhline(ref_fd_rate, color="gray", ls="--", label="reference exact CPU path")
     ax.set_xlabel("batch size")
     ax.set_ylabel("dynamics evaluations / s")
@@ -173,11 +171,11 @@ try:
                  f"{jax.default_backend()})")
     ax.grid(True, which="both", alpha=0.3)
     ax.legend()
-    out_png = os.path.join(OUT_DIR, "tpu_acceleration.png")
+    out_png = os.path.join(OUT_DIR, "gpu_acceleration.png")
     fig.savefig(out_png, dpi=120, bbox_inches="tight")
     print(f"\nplot saved: {out_png}")
 except ImportError:
     print("\n(matplotlib unavailable — plot skipped)")
 
-print("\nsummary: one compiled program replaces the reference's kernel-variant")
-print("zoo + autotuner + CPU/GPU threshold; throughput is a batch-size dial.")
+print("\nsummary: one dispatch policy (ops/dispatch.py) replaces the reference's")
+print("kernel-variant zoo + autotuner; throughput is a batch-size dial.")

@@ -17,7 +17,7 @@ when commissioning a physical manipulator:
    PyBullet DIRECT mode through :class:`PyBulletBridge` (skipped cleanly
    when PyBullet is absent).
 
-Runs headless on CPU or TPU: ``python real_robot_integration_demo.py
+Runs headless on CPU or GPU: ``python real_robot_integration_demo.py
 [--robot xarm6]``.
 """
 

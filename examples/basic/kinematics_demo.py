@@ -1,6 +1,6 @@
 """Basic kinematics: FK, frames, Jacobian statics, batched workspace.
 
-TPU-native twin of the reference's ``kinematics_basic_demo.py`` — the
+JAX twin of the reference's ``kinematics_basic_demo.py`` — the
 same queries, but every function is jittable and every "many configs"
 question is a ``vmap`` axis instead of a Python loop. Four phases:
 

@@ -1,6 +1,6 @@
 """Basic visualization: robot skeleton, trajectory plots, workspace scatter.
 
-TPU-native twin of the reference's ``visualization_basic_demo.py``
+JAX twin of the reference's ``visualization_basic_demo.py``
 (``Examples/basic_examples/visualization_basic_demo.py``): renders the
 robot at several configurations, a quintic trajectory triple-plot, and a
 Monte-Carlo workspace cloud. All figures save headlessly (Agg backend) to

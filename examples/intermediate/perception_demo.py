@@ -12,7 +12,7 @@ Twin of the reference's ``perception_intermediate_demo.py``. Four phases:
    results plotted to ``examples/out/perception.png``.
 
 (The reference's YOLO path is available as ``method='yolo'`` when
-ultralytics is installed — orthogonal to the TPU value proposition.)
+ultralytics is installed — orthogonal to the accelerator value proposition.)
 
 Run: ``python examples/intermediate/perception_demo.py [--cpu] [--quick]``.
 """

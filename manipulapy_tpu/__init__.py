@@ -1,8 +1,8 @@
-"""manipulapy_tpu — TPU-native manipulator kinematics, dynamics & MPC.
+"""manipulapy_tpu — batched manipulator kinematics, dynamics & MPC in JAX.
 
 A from-scratch JAX/XLA/Pallas framework with the capabilities of
 ManipulaPy's manipulator stack (see ``SURVEY.md`` at the repo root for the
-reference inventory), designed TPU-first:
+reference inventory), designed for accelerators (its target is the GPU):
 
 * immutable :class:`~manipulapy_tpu.models.RobotModel` PyTrees + pure
   functions instead of stateful classes with dict caches;
@@ -14,7 +14,7 @@ Submodules mirror the reference's layer map (``SURVEY.md`` section 1):
 ``core`` (L0 math), ``models``/``urdf`` (L1), ``kinematics``/``ik`` (L2),
 ``dynamics`` (L3), ``ops`` (L4 kernels), ``trajectory``/``potential_field``
 (L5), ``control`` (L6), ``singularity`` (L6b), ``mpc`` + ``parallel``
-(new TPU-native layers with no reference counterpart).
+(new layers with no reference counterpart).
 
 Heavy submodules load lazily (same contract as the reference's facade,
 ``ManipulaPy/__init__.py:174-220``) so ``import manipulapy_tpu`` stays
@@ -29,21 +29,18 @@ from typing import TYPE_CHECKING
 
 __version__ = "0.5.0"
 
-# TPU MXU passes for f32 matmuls default to bf16 (~8 mantissa bits), which
-# breaks dynamics parity: Lagrangian-vs-RNEA torque agreement degrades from
-# ~2e-5 to ~0.8 Nm on a UR5 (measured on v5e). Everything here is tiny
-# (6x6 spatial algebra), so full-precision passes cost nothing — default to
-# "highest" and let power users override (the accuracy-vs-speed env-flag
-# contract of the reference's MANIPULAPY_FASTMATH, ``cuda_kernels.py:41``,
-# with the opposite, accuracy-first default).
+# On the GPU an f32 matmul may run in TF32 (~10 mantissa bits), which breaks
+# dynamics parity (Lagrangian-vs-RNEA torque agreement of ~2e-5 N*m needs
+# full f32 products). Everything here is tiny (6x6 spatial algebra), so
+# full-precision products cost nothing — default to "highest" and let power
+# users override (the accuracy-vs-speed env-flag contract of the
+# reference's MANIPULAPY_FASTMATH, ``cuda_kernels.py:41``, with the
+# opposite, accuracy-first default). An unknown value raises.
 _precision = os.environ.get("MANIPULAPY_TPU_MATMUL_PRECISION", "highest")
 if _precision:
     import jax as _jax
 
-    try:
-        _jax.config.update("jax_default_matmul_precision", _precision)
-    except Exception:  # unknown value: leave jax defaults in place
-        pass
+    _jax.config.update("jax_default_matmul_precision", _precision)
 
 _SUBMODULES = (
     "core",

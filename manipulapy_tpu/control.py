@@ -3,8 +3,8 @@
 Capability parity with the reference's ``ManipulatorController``
 (``ManipulaPy/control.py:101-1067``). The reference is CPU-only *by
 design* — it coerces every input off-GPU because PCIe latency exceeds the
-compute of a single control step (``control.py:55-81``). On TPU the
-trade-off inverts: a jitted control step fuses into the rollout/MPC
+compute of a single control step (``control.py:55-81``). Batched on an
+accelerator the trade-off inverts: a jitted control step fuses into the rollout/MPC
 program, so thousands of control loops advance per device step. Hence:
 
 * every controller is a pure function ``(inputs, state) -> (tau, state)``
@@ -251,8 +251,7 @@ def kalman_filter_update(state: KalmanState, z, R) -> KalmanState:
     """Update with H = I (``control.py:450-513``).
 
     The innovation covariance S = P + R is SPD, so the gain is obtained
-    from a Cholesky solve (K = P S^{-1} => S K^T = P^T) — TPU has no
-    f64 LU path and Cholesky is cheaper anyway.
+    from a Cholesky solve (K = P S^{-1} => S K^T = P^T), cheaper than LU.
     """
     P = state.P
     S = P + R

@@ -1,4 +1,4 @@
-"""Batched, branchless SO(3)/SE(3) screw-theory primitives for TPU.
+"""Batched, branchless SO(3)/SE(3) screw-theory primitives.
 
 This is the L0 math layer of the framework (capability parity with the
 reference's ``ManipulaPy/utils.py:44-663``), redesigned for XLA:
@@ -50,9 +50,9 @@ def _wide(op, *args):
     exp, ...) to fast ~1e-7/1e-9-accurate approximations even at f64 —
     verified empirically on this backend — while widths >= 2 take the
     accurate vectorized path (with --xla_cpu_enable_fast_math=false; see
-    tests/conftest.py). Padding the last axis to 2 costs nothing on TPU
-    (everything is lane-vectorized there) and restores full f64 accuracy
-    for the CPU parity path.
+    tests/conftest.py). Padding the last axis to 2 costs nothing on a
+    vectorized device and restores full f64 accuracy for the CPU parity
+    path.
     """
     padded = [jnp.stack([a, a], axis=-1) for a in args]
     return op(*padded)[..., 0]

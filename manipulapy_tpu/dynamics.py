@@ -4,8 +4,7 @@ This is the framework's headline upgrade over the reference: the reference
 ships *exact* dynamics only on a serial CPU path (``ManipulaPy/dynamics.py``,
 ~1.19 ms/call) and deliberately *simplified* per-joint GPU kernels
 (``cuda_kernels.py:1163-1166``). Here the exact formulation is the only
-formulation — vmap-batched over thousands of configurations and jit-fused
-for the TPU VPU/MXU.
+formulation — vmap-batched over thousands of configurations and jit-fused.
 
 Two interchangeable formulations are provided, and tested against each
 other to machine precision:
@@ -73,8 +72,7 @@ def mass_matrix(model: RobotModel, q: jnp.ndarray) -> jnp.ndarray:
     """Joint-space mass matrix ``M(q) = sum_k J_k^T G_k J_k``.
 
     Exact counterpart of the reference's accurate path
-    (``dynamics.py:73-140``), as one fused einsum chain (MXU-friendly when
-    vmapped). Symmetrized against floating-point drift like the reference.
+    (``dynamics.py:73-140``), as one fused einsum chain. Symmetrized against floating-point drift like the reference.
     """
     Jc = com_jacobians(model, q)
     M = jnp.einsum("kai,kab,kbj->ij", Jc, model.inertias, Jc)
@@ -149,8 +147,7 @@ def forward_dynamics(
     rhs = tau - coriolis_forces(model, q, dq) - gravity_forces(model, q, g)
     if f_tip is not None:
         rhs = rhs - jacobian(model, q).T @ jnp.asarray(f_tip, dtype=model.dtype)
-    # Cholesky rather than LU: M is SPD, and TPU XLA only implements
-    # f32/c64 LU (f64 LU fails to compile there).
+    # Cholesky rather than LU: M is SPD.
     L = jnp.linalg.cholesky(mass_matrix(model, q))
     y = jax.scipy.linalg.solve_triangular(L, rhs, lower=True)
     return jax.scipy.linalg.solve_triangular(L.T, y, lower=False)
@@ -268,6 +265,6 @@ def forward_dynamics_fast(
 
     rhs = tau - rnea(model, q, dq, jnp.zeros_like(q), g=g, f_tip=f_tip)
     M = mass_matrix(model, q)
-    # Scalar-unrolled SPD solve: XLA's batched small Cholesky kernels run
-    # far below the VPU roofline on TPU (see ops/smallinalg.py).
+    # Scalar-unrolled SPD solve: one fused elementwise program instead of
+    # XLA's loop-based batched small-matrix kernels (see ops/smallinalg.py).
     return solve_spd_small(M, rhs)

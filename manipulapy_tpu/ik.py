@@ -87,9 +87,9 @@ def dls_solve(J: jnp.ndarray, V_err: jnp.ndarray, damping) -> jnp.ndarray:
         J^T (J J^T + l^2 I)^{-1} = V diag(s / (s^2 + l^2)) U^T
 
     exactly, so the 6x6 SPD solve (scalar-unrolled Cholesky,
-    ``ops/smallinalg.py``) replaces the SVD. On TPU the small iterative
-    SVD was the dominant cost of the whole IK loop (it lowers to many
-    tiny kernels); the unrolled solve is a handful of fused VPU ops.
+    ``ops/smallinalg.py``) replaces the SVD: the small iterative SVD
+    lowers to many tiny kernels, the unrolled solve to a handful of
+    fused elementwise ops.
     """
     from .ops.smallinalg import solve_spd_small
 
@@ -331,9 +331,8 @@ def solve_ik_batch(model: RobotModel, T_desired: jnp.ndarray, theta0: jnp.ndarra
 def freeze_solve_kw(kw: dict) -> tuple:
     """Freeze a ``solve_ik`` kwargs dict into a hashable static-arg tuple
     (all values are scalars), so whole IK *families* can be one jitted
-    program each — on a remote-device link every eager op is a dispatch
-    round trip, and the round-4 host-latency audit showed the eager
-    guess-building/selection composition cost 5-10 round trips per solve."""
+    program each — every eager op is a separate dispatch, and the eager
+    guess-building/selection composition cost 5-10 dispatches per solve."""
     return tuple(sorted(kw.items()))
 
 

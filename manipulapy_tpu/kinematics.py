@@ -2,14 +2,14 @@
 
 Capability parity with the reference's ``SerialManipulator`` kinematic
 methods (``ManipulaPy/kinematics.py:137-236, 759-853``), re-designed
-TPU-first:
+for batched accelerators:
 
 * pure functions over a :class:`~manipulapy_tpu.models.robot.RobotModel`
   PyTree — batching is ``jax.vmap`` over configurations (and/or models),
   not Python loops;
 * the per-joint product chain is unrolled at trace time (``n`` is static),
   letting XLA fuse the whole chain of small Rodrigues/4x4 products into one
-  fused elementwise program on the VPU when vmapped over large batches;
+  fused elementwise program when vmapped over large batches;
 * inverse kinematics lives in :mod:`manipulapy_tpu.ik` (batched DLS under
   ``lax.while_loop`` replaces the reference's data-dependent Python loop).
 """

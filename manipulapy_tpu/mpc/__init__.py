@@ -1,5 +1,6 @@
-"""Receding-horizon MPC: iLQR solver and cost library (TPU-native layer
-with no reference counterpart — see BASELINE.json north star)."""
+"""Receding-horizon MPC: iLQR solver, tracking-MPC builders and cost
+library (a layer with no reference counterpart — see BASELINE.json north
+star)."""
 
 from .ilqr import ILQRParams, ILQRResult, ilqr, make_step_fn, mpc_step
 from .costs import (
@@ -8,8 +9,13 @@ from .costs import (
     obstacle_cost,
     make_tracking_costs,
 )
-from .fused import TrackingMPC, build_tracking_mpc
-from .fused_batch import BatchTrackingMPC, batch_mpc_step, build_batch_tracking_mpc
+from .tracking import (
+    BatchTrackingMPC,
+    TrackingMPC,
+    batch_mpc_step,
+    build_batch_tracking_mpc,
+    build_tracking_mpc,
+)
 
 __all__ = [
     "ILQRParams",

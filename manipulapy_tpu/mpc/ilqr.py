@@ -3,20 +3,20 @@
 This layer has NO reference counterpart — the reference's planner stops at
 potential-field waypoint nudging ("extension point for RRT*/PRM",
 ``path_planning.py:2252-2253``) and its controllers are single-step laws.
-The TPU build's north star (BASELINE.json) adds receding-horizon MPC:
+This framework's north star (BASELINE.json) adds receding-horizon MPC:
 linearize the *exact* dynamics along a rollout, solve the LQR subproblem
 with a Riccati backward pass, line-search, repeat — everything under
 ``jit`` with ``lax.scan`` over the horizon, ``vmap``-able over scenario
 batches, and sharding-ready (the scenario axis shards over the device
 mesh; see :mod:`manipulapy_tpu.parallel`).
 
-Design notes (TPU-first):
+Design notes:
 
 * Dynamics linearization uses one ``jax.jacfwd`` over the discrete step —
   XLA batches the (2n)-wide forward-mode tangents through the same fused
   rollout kernel, so A, B come out of a single compiled program.
 * The backward pass is a ``lax.scan`` over time (sequential by nature,
-  but each step is tiny dense linear algebra that XLA keeps on-chip).
+  but each step is tiny dense linear algebra).
 * Control limits are handled by clamping the feedforward within the line
   search (box-projected iLQR), matching the reference's clamp-style limit
   semantics (``path_planning.py:1492-1503``).
@@ -43,10 +43,9 @@ class ILQRParams(NamedTuple):
     """Solver configuration (static across a solve).
 
     ``unroll``: unroll factor for the sequential time scans (forward
-    rollout and Riccati backward). Single-scenario solves on TPU are
-    kernel-launch-bound (~70 us per scan step measured on v5e), so
-    unrolling trades compile time for a large latency cut; batched solves
-    are compute-bound and gain little.
+    rollout and Riccati backward). Unrolling trades compile time for
+    fewer loop iterations; whether single-scenario solves on the GPU are
+    launch-bound is measured in PERF.md.
     """
 
     horizon: int
@@ -83,8 +82,8 @@ def make_step_fn(model: RobotModel, dt: float, g=None, fused: bool = True) -> Ca
     with position clamped to the joint limits.
 
     ``fused=True`` (default) emits the scalar-unrolled SoA step
-    (``ops/fd_step.py``) — ~3x faster inside the solver's sequential
-    scans on TPU. Requires concrete model arrays (host codegen); it
+    (``ops/fd_step.py``), one fused elementwise program per step.
+    Requires concrete model arrays (host codegen); it
     falls back to the generic path when the model is a tracer (e.g. a
     vmapped fleet model).
     """
@@ -189,9 +188,9 @@ def ilqr(
     # ``linearize_step_fn`` lets callers differentiate a mathematically
     # identical but compile-friendlier step: jacfwd of the scalar-unrolled
     # cgen step pushes 3n tangents through thousands of scalar ops and
-    # costs ~4.5 min of XLA optimization at Panda H=50, while the array
-    # formulation (make_step_fn(..., fused=False)) compiles in well under
-    # half that (measured; see benchmarks/compile_budget_results.json).
+    # compiles ~12x slower than the array formulation
+    # (make_step_fn(..., fused=False)) at Panda H=50 (measured on the
+    # CPU: 355 s against 30 s; mpc/tracking.py).
     lin_step = linearize_step_fn if linearize_step_fn is not None else step_fn
     fx_fn = jax.jacfwd(lin_step, argnums=0)
     fu_fn = jax.jacfwd(lin_step, argnums=1)
@@ -259,8 +258,7 @@ def ilqr(
         """Closed-loop rollout with step scale alpha and control clamp.
 
         The running cost is accumulated inside the same scan (one pass
-        instead of rollout-then-cost: the cost re-walk was a measured
-        ~1.4 ms of pure launch overhead per iteration on v5e)."""
+        instead of rollout-then-cost, which re-walks the horizon)."""
 
         def fstep(carry, inp):
             x, acc = carry
@@ -287,8 +285,8 @@ def ilqr(
 
         # Line search: ALL alphas roll out concurrently (vmapped) — the
         # candidates are independent, so batching them divides the
-        # sequential depth by the alpha count (the dominant cost of a
-        # small-n solve on TPU is sequential kernel latency, not FLOPs).
+        # sequential depth by the alpha count (a small-n solve is bound
+        # by its sequential depth, not FLOPs).
         # Selection keeps the first-improving-alpha semantics of a
         # backtracking search.
         xs_all, us_all, costs_all = jax.vmap(

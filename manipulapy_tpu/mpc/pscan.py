@@ -1,8 +1,7 @@
 """Parallel-scan (associative) Riccati backward pass.
 
-The iLQR backward sweep is sequential in time; on TPU that costs ~50
-kernel-launch-bound scan steps (measured ~4.3 ms of the Panda H=50
-solve's 33 ms). The LQR value-function recursion is, however, the
+The iLQR backward sweep is sequential in time: H scan steps. The LQR
+value-function recursion is, however, the
 composition of affine-quadratic maps — an *associative* operation — so
 it can run as ``jax.lax.associative_scan`` with O(log H) sequential
 depth and batched 2n x 2n linear algebra per level. This is the

@@ -1,6 +1,6 @@
 """Native (C++) host-side components, ctypes-bound.
 
-The TPU compute path is JAX/XLA/Pallas; this package holds the *runtime*
+The compute path is JAX/XLA/Pallas; this package holds the *runtime*
 pieces that stay on the host and benefit from native code — currently the
 mesh loader feeding the URDF collision/visual pipeline (robot catalogs
 carry 100s of MB of STL geometry; reference ``ARCHITECTURE.md:118``).

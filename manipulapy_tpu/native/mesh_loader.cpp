@@ -4,7 +4,7 @@
 // This is the host-side systems component of the framework (SURVEY.md
 // section 2 note: "where a host-side systems component is genuinely
 // needed, C++"). Mesh IO is the one genuinely hot host loop left after
-// the compute path moved onto the TPU: robot catalogs carry ~100s of MB
+// the compute path moved onto the device: robot catalogs carry ~100s of MB
 // of STL collision/visual geometry (reference ARCHITECTURE.md:118), and
 // the pure-Python loader (reference geometry/mesh_loader.py:31-213,
 // ours urdf/geometry.py) is allocation-bound on large files.

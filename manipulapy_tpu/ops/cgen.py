@@ -2,20 +2,20 @@
 
 The exact-dynamics hot path is thousands of *tiny* matrix operations
 (3x3 rotations, 6-vector adjoints, 6x6 inertia forms) batched over
-thousands of scenarios. Lowering those through batched ``dot_general``
-runs ~1000x below the VPU roofline on TPU (measured; tiny contractions
-neither tile onto the MXU nor fuse well).
+thousands of scenarios. Lowered through batched ``dot_general`` they
+neither tile onto matrix units nor fuse well.
 
 This module takes the opposite, kernel-style route: every small-matrix
 quantity is a Python list of *values*, where a value is either a Python
 float (a compile-time constant — robot geometry) or a ``(B,)`` array (a
-per-scenario quantity living in VPU lanes). Arithmetic helpers
+per-scenario quantity, one lane per scenario). Arithmetic helpers
 constant-fold aggressively — multiplications by 0 vanish, by 1 pass
 through, float*float folds at trace time — so a product-of-exponentials
 chain over a *fixed* robot emits only the non-trivial multiply-adds.
 The result is one flat elementwise program over (B,)-wide vectors that
-XLA fuses into a handful of VPU kernels (and that can be pasted into a
-Pallas kernel body unchanged, since it is layout-agnostic).
+XLA fuses into a handful of kernels (and that is pasted into the GPU
+rollout kernel, ``ops/triton_rollout.py``, unchanged: it is
+layout-agnostic).
 
 Convention: matrices are row-major nested lists; twists are 6-lists
 ``[w; v]``; transforms are ``(R, p)`` pairs (3x3 list, 3-list).

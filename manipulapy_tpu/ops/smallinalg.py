@@ -1,13 +1,11 @@
 """Scalar-unrolled dense linear algebra for tiny SPD systems.
 
-XLA:TPU lowers ``jnp.linalg.cholesky`` / triangular solves on batched
-tiny matrices to loop-based library kernels that run ~50x below the VPU
-roofline (measured: 6.3 ms for 8192 6x6 solves — the single largest cost
-of the exact-dynamics step). These routines unroll the factorization and
-solves over the *static* matrix dimension with Python loops, so under
-``vmap`` every operation is a fused (B,)-wide elementwise VPU op — the
-same structure a hand-written Pallas kernel would use, with XLA doing
-the tiling.
+XLA lowers ``jnp.linalg.cholesky`` / triangular solves on batched tiny
+matrices to loop-based library kernels. These routines unroll the
+factorization and solves over the *static* matrix dimension with Python
+loops, so under ``vmap`` every operation is a fused (B,)-wide
+elementwise op — the same structure a hand-written kernel would use,
+with XLA doing the tiling.
 
 n is a static trace-time constant (robot DoF, 2-16); the unrolled program
 is O(n^3) scalar ops — tiny at these sizes.
@@ -38,7 +36,7 @@ def chol_factor_small(M: jnp.ndarray) -> list:
         s = M[..., j, j]
         for k in range(j):
             s = s - L[j][k] * L[j][k]
-        # rsqrt keeps it a single VPU op; the factor is only used via
+        # one sqrt per pivot; the factor is only used via
         # division-free multiplies below.
         inv = jnp.sqrt(s)
         L[j][j] = inv
@@ -113,9 +111,8 @@ def solve_general_small_mat(M: jnp.ndarray, rhs: jnp.ndarray) -> jnp.ndarray:
     Safe ONLY for matrices whose leading principal minors stay away from
     zero — e.g. ``I + C J`` with C, J PSD (eigenvalues >= 1), the parallel-
     Riccati combine matrices (``mpc/pscan.py``). XLA's library LU lowers
-    tiny batched solves to long sequences of dynamic-slice kernels on TPU
-    (measured ~2.8 ms for the H=50 Riccati scan); this unrolled form is a
-    single fused elementwise program.
+    tiny batched solves to long sequences of dynamic-slice kernels; this
+    unrolled form is a single fused elementwise program.
     """
     m = M.shape[-1]
     a = [[M[..., i, j] for j in range(m)] for i in range(m)]

@@ -1,9 +1,9 @@
-"""Distributed execution over TPU meshes (scenario-axis sharding).
+"""Distributed execution over device meshes (scenario-axis sharding).
 
 No reference counterpart — the reference is single-process/single-GPU
 (SURVEY.md section 5: "no NCCL/MPI/..."). This layer implements the
-BASELINE.json multi-host dimension: batch/scenario sharding over ICI/DCN
-via ``jax.sharding`` + ``shard_map``.
+BASELINE.json multi-device dimension: batch/scenario sharding over the
+cards of a host via ``jax.sharding`` + ``shard_map``.
 """
 
 from .mesh import (
@@ -25,13 +25,6 @@ from .fleet import (
     fleet_ilqr_solve,
     fleet_mpc_round,
 )
-from .fused_fleet import (
-    ShardedBatchMPC,
-    build_sharded_batch_mpc,
-    FleetFusedMPC,
-    build_fleet_fused_mpc,
-    unpad_robot,
-)
 
 __all__ = [
     "make_mesh",
@@ -49,9 +42,4 @@ __all__ = [
     "fleet_rollout",
     "fleet_ilqr_solve",
     "fleet_mpc_round",
-    "ShardedBatchMPC",
-    "build_sharded_batch_mpc",
-    "FleetFusedMPC",
-    "build_fleet_fused_mpc",
-    "unpad_robot",
 ]

@@ -1,9 +1,8 @@
 """Fleet MPC: heterogeneous robots x scenarios over the device mesh.
 
 BASELINE config #5 ("Multi-host fleet MPC: 25 bundled robots x thousands
-of scenarios, QP blocks reduced over ICI") has no reference counterpart —
-the reference's multi-robot support is purely kinematic
-(``ManipulaPy/urdf/scene.py:55``). The TPU design:
+of scenarios") has no reference counterpart — the reference's multi-robot
+support is purely kinematic (``ManipulaPy/urdf/scene.py:55``). The design:
 
 * A *fleet* is one batched :class:`RobotModel` whose leaves carry a
   leading robot axis, built by zero-padding every robot to the fleet's
@@ -18,8 +17,9 @@ the reference's multi-robot support is purely kinematic
   decoupled from the real block by construction.
 * The MPC round is a nested ``vmap`` (robots x scenarios) of the iLQR
   solver with the *scenario* axis sharded over the mesh; the fleet cost
-  reduces with an explicit ``psum`` so the collective shape is guaranteed
-  (one scalar per device over ICI).
+  reduces with an explicit ``pmean`` so the collective shape is guaranteed
+  (one scalar per device; the cards of a host are joined all to all, so a
+  1-D mesh over them is the whole layout).
 """
 
 from __future__ import annotations
@@ -263,21 +263,12 @@ def fleet_mpc_round(
     params: ILQRParams,
     g=None,
     axis_name: str = SCENARIO_AXIS,
-    solver: str = "ilqr",
-    fused_mpc=None,
 ):
     """One distributed fleet-MPC round: scenario axis sharded over the
-    mesh, robots replicated, fleet cost psum-reduced over ICI.
+    mesh, robots replicated, fleet cost pmean-reduced over the mesh.
+    The generic vmapped iLQR serves any robot mix in one compile.
 
     The scenario count S must be a multiple of the mesh size.
-
-    ``solver`` selects the engine: ``"ilqr"`` (generic vmapped iLQR,
-    any robot mix, single compile) or ``"fused_batch"`` (the flagship
-    Pallas batched solver of :mod:`manipulapy_tpu.mpc.fused_batch`
-    under ``shard_map`` — one solver build per robot; pass a prebuilt
-    ``fused_mpc`` handle from
-    :func:`manipulapy_tpu.parallel.fused_fleet.build_fleet_fused_mpc`
-    to amortize builds across receding-horizon rounds).
 
     Returns:
         (us, costs, fleet_cost): (R, S, H, n_max) optimal controls,
@@ -287,38 +278,7 @@ def fleet_mpc_round(
     S = x0.shape[1]
     n_dev = mesh.devices.size
     if S % n_dev != 0:
-        # checked BEFORE the solver branch: the fused path previously
-        # surfaced this only as a deeper builder error after per-robot
-        # unpadding work.
         raise ValueError(f"scenario count {S} must be divisible by the mesh size {n_dev}")
-    if solver == "fused_batch":
-        from .fused_fleet import build_fleet_fused_mpc
-
-        if fused_mpc is not None:
-            # a prebuilt handle whose configuration silently disagrees
-            # with `params` would solve with stale settings
-            if fused_mpc.horizon != params.horizon or fused_mpc.scenarios != S:
-                raise ValueError(
-                    f"prebuilt fused_mpc (H={fused_mpc.horizon}, "
-                    f"S={fused_mpc.scenarios}) does not match params/call "
-                    f"(H={params.horizon}, S={S})"
-                )
-        if fused_mpc is None:
-            fused_mpc = build_fleet_fused_mpc(
-                fleet,
-                mesh,
-                S,
-                params.horizon,
-                params.dt,
-                axis_name=axis_name,
-                iterations=params.iterations,
-                line_search_steps=params.line_search_steps,
-                reg=params.reg_init,
-                g=g if g is not None else (0.0, 0.0, -9.81),
-            )
-        return fused_mpc.round(x0, us0, q_goals)
-    if solver != "ilqr":
-        raise ValueError(f"unknown solver {solver!r} (use 'ilqr' or 'fused_batch')")
 
     fleet_r = Fleet(model=replicate_model(fleet.model, mesh), mask=replicate_model(fleet.mask, mesh))
     sh = NamedSharding(mesh, P(None, axis_name))

@@ -4,8 +4,7 @@ The workload is embarrassingly parallel over *scenarios* (batched
 rollouts, IK multi-starts, MPC problem instances) with occasional global
 reductions (cost sums, convergence votes, argmin-over-starts). The
 canonical layout is therefore a 1-D ``scenario`` mesh axis spanning all
-devices (ICI within a host, DCN across hosts), with the robot model
-replicated and batch leading axes sharded.
+devices, with the robot model replicated and batch leading axes sharded.
 
 Design per the scaling-book recipe: pick a mesh -> annotate shardings
 with ``NamedSharding`` -> let XLA insert collectives -> profile. Explicit
@@ -41,9 +40,8 @@ SCENARIO_AXIS = "scenario"
 def make_mesh(num_devices: Optional[int] = None, axis_name: str = SCENARIO_AXIS) -> Mesh:
     """1-D device mesh over the first ``num_devices`` devices (default all).
 
-    On a v5p slice the devices enumerate along ICI; a multi-host job gets
-    one global mesh whose collectives ride ICI within hosts and DCN
-    across — XLA picks the hierarchical strategy.
+    The cards of one host are joined all to all (NVLink), so the mesh
+    follows the algorithm — one scenario axis — and not a topology.
     """
     devices = jax.devices()
     if num_devices is not None:
@@ -126,31 +124,35 @@ def distributed_rollout(
     """Mesh-sharded batched forward-dynamics rollouts (BASELINE config #2
     at scale): (B, n) initial states + (B, N, n) torques, B sharded over
     the scenario axis.
+
+    Each device runs the rollout engine that
+    ``trajectory.forward_dynamics_trajectory`` would pick for the same
+    call on one device (``ops/dispatch.py``: the GPU kernel for f32 on a
+    GPU, the cgen scan otherwise) on its shard of the batch. Ragged B is
+    padded to a device multiple and un-padded on return.
     """
-    return _cached_rollout(mesh, _hashable_g(g), float(dt), int(intRes))(
-        model, q0, dq0, taus
+    from ..trajectory import _DEFAULT_G, _rollout_engine_for
+
+    g_t = _DEFAULT_G if g is None else tuple(float(x) for x in g)
+    q0 = jnp.asarray(q0)
+    engine = _rollout_engine_for(model, dt, intRes, g_t, dtype=q0.dtype, batched_2d=True)
+    n_dev = mesh.devices.size
+    (q0, B), (dq0, _), (taus, _) = (
+        _pad_to_multiple(jnp.asarray(x), n_dev) for x in (q0, dq0, taus)
     )
+    args = shard_batch([q0, dq0, taus], mesh, SCENARIO_AXIS)
+    out = _sharded_engine(engine, mesh)(*args)
+    return tuple(x[:B] for x in out)
 
 
-def _hashable_g(g):
-    return None if g is None else tuple(float(x) for x in g)
-
-
-# sharded_vmap's internal per-arity jit cache lives in the wrapper
-# closure, and jax.jit keys on FUNCTION IDENTITY — rebuilding the
-# wrapper (and a fresh per_scenario closure) on every distributed_*
-# call re-traced and re-compiled the whole program each time. These
-# lru_caches make repeated calls hit the same wrapper/jit.
+# jax.jit keys on FUNCTION IDENTITY: building the shard_map'd program on
+# every call re-traced and re-compiled it each time, so it is cached by
+# (engine, mesh); the engine itself is cached by trajectory.py.
 @lru_cache(maxsize=None)
-def _cached_rollout(mesh: Mesh, g, dt: float, intRes: int):
-    from ..trajectory import forward_dynamics_trajectory
-
-    def per_scenario(model, q0_i, dq0_i, tau_i):
-        return forward_dynamics_trajectory(
-            model, q0_i, dq0_i, tau_i, g=g, dt=dt, intRes=intRes
-        )
-
-    return sharded_vmap(per_scenario, mesh)
+def _sharded_engine(engine: Callable, mesh: Mesh):
+    spec = P(SCENARIO_AXIS)
+    return jax.jit(jax.shard_map(engine, mesh=mesh, in_specs=(spec,) * 3, out_specs=(spec,) * 3,
+                                 check_vma=False))
 
 
 def distributed_ik(model, mesh: Mesh, targets: jnp.ndarray, guesses: jnp.ndarray, **kw):

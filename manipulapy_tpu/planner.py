@@ -195,7 +195,7 @@ class TrajectoryPlanner:
         dq0 = jnp.asarray(dthetalist, dtype=dtype)
         taus = jnp.asarray(taumat, dtype=dtype)
         # Default-gravity, no-tip-wrench rollouts take the fused SoA kernel
-        # (ops/fd_step.py) — same output contract, ~6x throughput on TPU.
+        # (ops/fd_step.py) — same output contract as the generic scan.
         if Ftipmat is None and g is None:
             key = (float(dt), int(intRes))
             rollout = self._fused_rollouts.get(key)

@@ -115,11 +115,8 @@ def cartesian_potential_field(
     Returns:
         (potential, gradient): shapes (...,) and (..., 3).
     """
-    # Kernel policy (measured, benchmarks/kernel_bakeoff_results.json):
-    # the fused Pallas twin (ops/pallas_kernels.py::cartesian_potential_
-    # pallas) is within +-13%/-6% of this jnp formulation at 16k-262k
-    # points — XLA fuses the whole obstacle reduction — so the jnp path
-    # serves every call and the kernel remains a tested parity twin only.
+    # XLA fuses the whole obstacle reduction into one pass; no hand-written
+    # kernel serves this.
     dp = positions - goal
     U = 0.5 * jnp.sum(dp * dp, axis=-1)
     grad = dp

@@ -13,7 +13,7 @@ and a manual slider-control loop (``sim.py:947``).
 
 Everything here is optional-dependency-gated like the reference
 (import-time soft failure, call-time ``ImportError`` — ``sim.py:84-97``);
-the native TPU physics in :class:`manipulapy_tpu.sim.Simulation` never
+the native JAX physics in :class:`manipulapy_tpu.sim.Simulation` never
 needs it. The module accepts an injected ``pb_module`` for testing
 against a fake client (the reference's conftest trick,
 ``tests/conftest.py:681-705``).
@@ -39,7 +39,7 @@ def _resolve_pb(pb_module):
         raise ImportError(
             "PyBullet is not installed. Install the 'simulation' extra "
             "(pip install manipulapy-tpu[simulation]) for the visual bridge; "
-            "the native TPU simulator works without it."
+            "the native JAX simulator works without it."
         )
     import pybullet as p
 

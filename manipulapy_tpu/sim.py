@@ -1,4 +1,4 @@
-"""Simulation: native TPU-backed physics with an optional PyBullet bridge.
+"""Simulation: native JAX physics with an optional PyBullet bridge.
 
 Capability parity with the reference's ``ManipulaPy/sim.py`` (``Simulation``
 class, SURVEY.md section 2.6) — redesigned around a key inversion: the
@@ -47,7 +47,7 @@ def _check_pybullet():
 
 
 class Simulation:
-    """Manipulator simulation driven by the exact TPU dynamics engine.
+    """Manipulator simulation driven by the exact dynamics engine.
 
     Args:
         model: robot model (the physics plant).

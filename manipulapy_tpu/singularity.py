@@ -99,8 +99,8 @@ def manipulability_ellipsoid(model: RobotModel, q: jnp.ndarray):
 def manipulability_measure(model: RobotModel, q: jnp.ndarray) -> jnp.ndarray:
     """Yoshikawa measure ``sqrt(det(J J^T)) = prod(sigma_i)``.
 
-    Computed from singular values rather than ``slogdet`` — TPU XLA has
-    no f64 LU lowering, and the SVD is shared with the other measures.
+    Computed from singular values rather than ``slogdet``: the SVD is
+    shared with the other measures.
     """
     s = jnp.linalg.svd(_measure_jacobian(model, q), compute_uv=False)
     return jnp.prod(s, axis=-1)

@@ -75,17 +75,11 @@ def joint_trajectory(
 
     Batch by passing (..., J) endpoints — the scaling profile broadcasts.
     """
-    # Kernel policy (measured, benchmarks/kernel_bakeoff_results.json):
-    # the broadcast outer product below IS the optimal TPU program — the
-    # hand-written Pallas twin (ops/pallas_kernels.py::trajectory_pallas)
-    # ties it at <=1.5M output elements (both at the dispatch floor) and
-    # is 2.2x SLOWER at 25M elements (B=1024, N=4096), because XLA already
-    # fuses scaling-profile + outer product into one pass while the kernel
-    # pays a (B,J,N)->(B,N,J) relayout. So the jnp path serves every call;
-    # the Pallas kernel stays as a tested parity twin only. (The reference
-    # needed five CUDA variants + an autotuner for this op,
-    # cuda_kernels.py:780-1144,1686-1896.) Degenerate Tf/N guards live in
-    # scaling_profile (cuda_kernels.py:676-680 semantics).
+    # One formulation serves every call: XLA fuses the scaling profile and
+    # the outer product into one pass, where the reference needed five
+    # CUDA variants + an autotuner (cuda_kernels.py:780-1144,1686-1896).
+    # Degenerate Tf/N guards live in scaling_profile
+    # (cuda_kernels.py:676-680 semantics).
     s, s_dot, s_ddot = scaling_profile(Tf, N, method, dtype=theta_start.dtype)
     delta = theta_end - theta_start
     pos = theta_start[..., None, :] + s[:, None] * delta[..., None, :]
@@ -188,17 +182,12 @@ _ENGINE_CACHE: dict = {}
 _ENGINE_CACHE_MAX = 16
 
 
-def _rollout_engine_for(model, dt, intRes, g, num_elements, dtype, batched_2d):
-    """Resolve + cache the fast rollout engine for a concrete call, or
-    return None when only the generic scan path applies."""
+def _rollout_engine_for(model, dt, intRes, g, dtype, batched_2d):
+    """Resolve + cache the rollout engine ``ops/dispatch.py`` picks for a
+    concrete call."""
     from .ops import dispatch
 
-    want_pallas = (
-        dispatch.pallas_wanted(num_elements)
-        and dtype == jnp.float32  # the Pallas engine's precision contract
-        and batched_2d  # kernel layout needs (B, n) initial states
-    )
-    kind = "pallas" if want_pallas else "cgen"
+    kind = "kernel" if dispatch.rollout_kernel_wanted(dtype, batched_2d) else "cgen"
     # Key on model CONTENT when available: load_robot builds a fresh
     # RobotModel per call, so an id(model) key would rebuild+recompile
     # the engine on every forward_dynamics_trajectory(load_robot(...))
@@ -212,17 +201,11 @@ def _rollout_engine_for(model, dt, intRes, g, num_elements, dtype, batched_2d):
     hit = _ENGINE_CACHE.get(key)
     if hit is not None:
         return hit[1]
-    if kind == "pallas":
-        from .ops.pallas_rollout import build_pallas_rollout
-
-        engine = build_pallas_rollout(
-            model, dt=float(dt), intRes=int(intRes), g=tuple(g),
-            interpret=jax.default_backend() != "tpu",
-        )
+    if kind == "kernel":
+        from .ops.triton_rollout import build_triton_rollout as build
     else:
-        from .ops.fd_step import build_rollout
-
-        engine = build_rollout(model, dt=float(dt), intRes=int(intRes), g=tuple(g))
+        from .ops.fd_step import build_rollout as build
+    engine = build(model, dt=float(dt), intRes=int(intRes), g=tuple(g))
     if len(_ENGINE_CACHE) >= _ENGINE_CACHE_MAX:
         _ENGINE_CACHE.pop(next(iter(_ENGINE_CACHE)))
     # Keep the model in the value: its id() is the cache key, so it must
@@ -257,8 +240,9 @@ def forward_dynamics_trajectory(
     Dispatch (the analogue of the reference's GPU/CPU auto-dispatch,
     ``path_planning.py:457-492``): concrete host-side calls with default
     wrench/gravity are served by the fused rollout engines — the cgen
-    elementwise program (``ops/fd_step.py``), or the Pallas VMEM-carry
-    kernel (``ops/pallas_rollout.py``) for large f32 batches on TPU —
+    elementwise program (``ops/fd_step.py``), or the whole-horizon GPU
+    kernel (``ops/triton_rollout.py``) for large f32 batches on a GPU,
+    as ``ops/dispatch.py`` decides —
     which share the exact same emitted dynamics and clamp semantics
     (parity pinned in ``tests/test_trajectory.py``). Calls traced inside
     an outer ``jit``/``vmap``, with an ``Ftipmat``, or with traced
@@ -287,10 +271,7 @@ def forward_dynamics_trajectory(
         g_t = _DEFAULT_G if g is None else tuple(float(x) for x in jnp.asarray(g))
         arr = jnp.asarray(thetalist)
         engine = _rollout_engine_for(
-            model, dt, intRes, g_t,
-            num_elements=int(jnp.asarray(taumat).size),
-            dtype=arr.dtype,
-            batched_2d=(arr.ndim == 2),
+            model, dt, intRes, g_t, dtype=arr.dtype, batched_2d=(arr.ndim == 2)
         )
         return engine(thetalist, dthetalist, taumat)
     return _forward_dynamics_trajectory_generic(

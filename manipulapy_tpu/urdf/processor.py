@@ -1,4 +1,4 @@
-"""One-stop URDF → TPU model facade.
+"""One-stop URDF → model facade.
 
 Behavioural counterpart of the reference's ``URDFToSerialManipulator``
 (``urdf_processor.py:57-677``): load a URDF (path, string, or catalog
@@ -33,7 +33,7 @@ __all__ = ["URDFToRobotModel"]
 
 
 class URDFToRobotModel:
-    """Load a URDF and expose the full TPU-native manipulator stack.
+    """Load a URDF and expose the full manipulator stack.
 
     Parameters
     ----------
@@ -48,7 +48,7 @@ class URDFToRobotModel:
         Optional ``(lower, upper)`` arrays overriding the URDF limits
         (the reference's PyBullet-override escape hatch).
     dtype:
-        Numeric dtype of the resulting model (default float32 — the TPU
+        Numeric dtype of the resulting model (default float32 — the
         rollout dtype; use float64 on CPU for oracle-grade parity).
     """
 

@@ -1,12 +1,11 @@
-"""AOT executable cache: eliminate cold-start compiles for the MPC solvers.
+"""AOT executable cache: skip cold-start compiles for the MPC solvers.
 
-The fused Pallas solvers compile in minutes on a cold remote-compile
-service (``benchmarks/compile_budget_results.json`` records a 155 s
-first build). The persistent XLA compilation cache does not serve this
-backend, so the deployment answer is **ahead-of-time executables**:
+A cold build of the tracking-MPC solvers compiles one large program.
 ``jax.experimental.serialize_executable`` serializes a *compiled*
-program (not StableHLO — no recompilation at load), and a fresh process
-deserializes and reaches its first solve in well under a second.
+program (not StableHLO — no recompilation at load), so a fresh process
+deserializes it and reaches its first solve without compiling. Whether
+JAX's persistent compilation cache makes this unnecessary on the GPU is
+an open question (ROADMAP design debt 11).
 
 Workflow::
 
@@ -23,8 +22,7 @@ load on a mismatch (returning ``None`` so callers can fall back to a
 normal build).
 
 The reference has no analogue — its CUDA kernels JIT per process via
-numba/cupy caches. This is the TPU-native equivalent of shipping a
-cubin.
+numba/cupy caches. This is the equivalent of shipping a cubin.
 """
 
 from __future__ import annotations
@@ -135,14 +133,10 @@ def load_executable(path: str) -> Optional[tuple]:
 # Solver-specific wrappers
 # ---------------------------------------------------------------------------
 
-_SUB, _LANE = 8, 128
-_TILE_B = _SUB * _LANE
-
-
 def save_batch_mpc(mpc, path: str) -> str:
-    """AOT-export a built :class:`~manipulapy_tpu.mpc.fused_batch.
+    """AOT-export a built :class:`~manipulapy_tpu.mpc.tracking.
     BatchTrackingMPC`: compiles ``solve_impl`` for the solver's declared
-    (B, H, n) shapes and stores the build-time goal tiles alongside."""
+    (B, H, n) shapes and stores the build-time goals alongside."""
     import jax.numpy as jnp
 
     B, H, n = mpc.batch, mpc.horizon, mpc.n
@@ -166,7 +160,7 @@ def load_batch_mpc(path: str) -> Optional[Callable]:
     """Load an AOT batched solver: returns
     ``solve(x0 (B, 2n), us (B, H, n), q_goal=None) -> (us, xs, cost)``
     (the same surface as ``BatchTrackingMPC.solve``), or None on any
-    mismatch. First call runs in milliseconds — no compilation."""
+    mismatch. The first call runs without compiling."""
     import jax.numpy as jnp
 
     loaded = load_executable(path)
@@ -176,34 +170,28 @@ def load_batch_mpc(path: str) -> Optional[Callable]:
     if meta.get("kind") != "batch_mpc":
         return None
     B, n = meta["B"], meta["n"]
-    goal_default = jnp.asarray(meta["goal_default"])
-    pad = (-B) % _TILE_B
-    Bp = B + pad
-    Bt = Bp // _TILE_B
-
-    def stage_goal(g):
-        g = jnp.asarray(g, jnp.float32)
-        if g.ndim == 1:
-            g = jnp.broadcast_to(g, (B, n))
-        elif g.shape[0] != B:
-            raise ValueError(f"q_goal batch {g.shape[0]} != declared batch {B}")
-        gp = jnp.concatenate([g, jnp.zeros((pad, n), jnp.float32)], axis=0)
-        return gp.reshape(Bt, _SUB, _LANE, n).transpose(0, 3, 1, 2)
+    goal_default = jnp.asarray(meta["goal_default"], jnp.float32)
 
     def solve(x0, us_init, q_goal=None):
         if x0.shape[0] != B:
             raise ValueError(f"x0 batch {x0.shape[0]} != declared batch {B}")
-        goal_t = goal_default if q_goal is None else stage_goal(q_goal)
+        goal = goal_default
+        if q_goal is not None:
+            goal = jnp.asarray(q_goal, jnp.float32)
+            if goal.ndim == 1:
+                goal = jnp.broadcast_to(goal, (B, n))
+            elif goal.shape[0] != B:
+                raise ValueError(f"q_goal batch {goal.shape[0]} != declared batch {B}")
         return core(
-            jnp.asarray(x0, jnp.float32), jnp.asarray(us_init, jnp.float32), goal_t
+            jnp.asarray(x0, jnp.float32), jnp.asarray(us_init, jnp.float32), goal
         )
 
     return solve
 
 
 def save_tracking_mpc(mpc, path: str) -> str:
-    """AOT-export a built :class:`~manipulapy_tpu.mpc.fused.TrackingMPC`
-    (the single-problem latency solver)."""
+    """AOT-export a built :class:`~manipulapy_tpu.mpc.tracking.TrackingMPC`
+    (the single-problem solver)."""
     import jax.numpy as jnp
 
     H, n = mpc.horizon, mpc.n
@@ -223,7 +211,7 @@ def save_tracking_mpc(mpc, path: str) -> str:
 
 
 def load_tracking_mpc(path: str) -> Optional[Callable]:
-    """Load an AOT latency solver: returns
+    """Load an AOT single-problem solver: returns
     ``solve(x0 (2n,), us (H, n), q_goal=None) -> (us, xs, cost)`` or
     None on mismatch."""
     import jax.numpy as jnp
@@ -234,21 +222,12 @@ def load_tracking_mpc(path: str) -> Optional[Callable]:
     core, meta = loaded
     if meta.get("kind") != "tracking_mpc":
         return None
-    n = meta["n"]
-    goal_default = jnp.asarray(meta["goal_default"])
-    nx = goal_default.shape[-1]
+    goal_default = jnp.asarray(meta["goal_default"], jnp.float32)
 
     def solve(x0, us_init, q_goal=None):
-        if q_goal is None:
-            goal_row = goal_default
-        else:
-            goal_row = (
-                jnp.zeros((1, nx), jnp.float32)
-                .at[0, :n]
-                .set(jnp.asarray(q_goal, jnp.float32))
-            )
+        goal = goal_default if q_goal is None else jnp.asarray(q_goal, jnp.float32)
         return core(
-            jnp.asarray(x0, jnp.float32), jnp.asarray(us_init, jnp.float32), goal_row
+            jnp.asarray(x0, jnp.float32), jnp.asarray(us_init, jnp.float32), goal
         )
 
     return solve

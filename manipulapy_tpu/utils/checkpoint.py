@@ -3,7 +3,7 @@
 The reference has no computation-state checkpointing (SURVEY.md section 5:
 its closest artifacts are the in-memory IK guess cache ``ik_helpers.py:227``
 and URDF calibration files ``urdf/modifiers.py:713-797``). A receding-
-horizon TPU workload does need it: fleet-MPC runs are long, and the
+horizon workload does need it: fleet-MPC runs are long, and the
 valuable state is small (warm-start control sequences, solver
 regularization, step counter, PRNG key). This module snapshots arbitrary
 JAX PyTrees to single-file ``.npz`` archives — the tree structure is kept

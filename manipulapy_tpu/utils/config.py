@@ -2,16 +2,19 @@
 
 The reference configures itself through ``MANIPULAPY_*`` environment
 variables (``SURVEY.md`` section 5: fastmath, CPU forcing, pinned memory,
-quiet mode). The TPU framework keeps the same mechanism with a
-``MANIPULAPY_TPU_*`` prefix; most reference flags have no TPU counterpart
-(no pinned memory, no CUDA probe) and are intentionally absent.
+quiet mode). This framework keeps the same mechanism with a
+``MANIPULAPY_TPU_*`` prefix; most reference flags have no counterpart
+here (JAX owns device memory and backend selection) and are
+intentionally absent.
 
 Flags honored:
 
 * ``MANIPULAPY_TPU_X64`` — enable float64 globally (CPU parity runs).
-* ``MANIPULAPY_TPU_CACHE_DIR`` — persistent XLA compilation cache dir.
 * ``MANIPULAPY_TPU_QUIET`` — suppress any banner output (parity with
   ``MANIPULAPY_QUIET``, reference ``__init__.py:472-475``).
+
+The persistent compilation cache follows JAX's own
+``JAX_COMPILATION_CACHE_DIR`` (see :func:`configure_cache`).
 """
 
 from __future__ import annotations
@@ -46,12 +49,25 @@ def configure_cpu_precision() -> None:
     jax.config.update("jax_enable_x64", True)
 
 
-def configure_cache(path: str | None = None) -> None:
-    """Enable the persistent XLA compilation cache."""
+# The checkout root: <checkout>/manipulapy_tpu/utils/config.py.
+_CHECKOUT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def configure_cache() -> str:
+    """Enable JAX's persistent compilation cache and return its directory.
+
+    When ``JAX_COMPILATION_CACHE_DIR`` is set, JAX uses it and nothing is
+    set here. Otherwise the cache goes to the fixed path
+    ``<checkout>/.jax_cache`` (git-ignored): the path is part of what a
+    later process must find again, so it never depends on a temporary
+    name, a process id or the time.
+    """
+    env_dir = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env_dir:
+        return env_dir
     import jax
 
-    cache_dir = path or os.environ.get(
-        "MANIPULAPY_TPU_CACHE_DIR", os.path.expanduser("~/.cache/manipulapy_tpu_xla")
-    )
+    cache_dir = os.path.join(_CHECKOUT, ".jax_cache")
     jax.config.update("jax_compilation_cache_dir", cache_dir)
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+    return cache_dir

@@ -1,6 +1,6 @@
 """Profiling and performance monitoring.
 
-TPU counterpart of the reference's three mechanisms (SURVEY.md section 5):
+Counterpart of the reference's three mechanisms (SURVEY.md section 5):
 ``CUDAPerformanceMonitor`` launch stats (``cuda_kernels.py:1635-1683``),
 ``profile_start/stop`` (``cuda_kernels.py:2113-2127``), and
 ``benchmark_kernel_performance`` warmup+timed micro-benchmarks

@@ -3,7 +3,7 @@
 Topic parity with the reference's notebook 01
 (``/root/reference/notebooks/01_rigid_body_motions.ipynb``): rotations,
 exponential coordinates, SE(3), screws/twists, the adjoint — but taught
-TPU-first: every map is branchless, batchable with ``vmap``, and
+accelerator-first: every map is branchless, batchable with ``vmap``, and
 differentiable with ``grad``, and the notebook demonstrates all three.
 
 Run: ``python build_nb01.py`` (from notebooks/).
@@ -13,7 +13,7 @@ from _common import PREAMBLE, build, code, md
 
 cells = [
     md(
-        "# 01 · Rigid-Body Motions, the TPU-Native Way\n"
+        "# 01 · Rigid-Body Motions, the Accelerator Way\n"
         "\n"
         "> **manipulapy_tpu teaching course — notebook 1 of 6.** Running robot: Franka Panda.\n"
         "\n"
@@ -115,8 +115,8 @@ cells = [
         "### Batch + JIT: the accelerator contract\n"
         "\n"
         "Because the maps are branchless with broadcasting batch axes, a "
-        "100,000-rotation batch is *one* `vmap` + `jit` call — on a TPU this "
-        "compiles to a single fused program over the vector units. This is the "
+        "100,000-rotation batch is *one* `vmap` + `jit` call — on a GPU this "
+        "compiles to a single fused program over the device. This is the "
         "design rule the whole framework follows: **axes, not loops**."
     ),
     code(
@@ -283,7 +283,7 @@ cells = [
     md(
         "## Summary\n"
         "\n"
-        "| Concept | Function | TPU-native property |\n"
+        "| Concept | Function | accelerator property |\n"
         "|---|---|---|\n"
         "| $[\\omega]_\\times$ | `skew` / `unskew` | batched |\n"
         "| $SO(3)$ exp/log | `so3_exp` / `so3_log` | branchless series blend; grad-safe at $0, \\pi$ |\n"

@@ -3,7 +3,7 @@
 Topic parity with the reference's notebook 02
 (``/root/reference/notebooks/02_forward_kinematics.ipynb``): the product
 of exponentials in space and body frames, link frames, and workspace
-sampling — taught TPU-first: ``lax.scan`` over joints, ``vmap`` over
+sampling — taught accelerator-first: ``lax.scan`` over joints, ``vmap`` over
 configurations, `jit` compile-once semantics, and an f64-oracle parity
 table.
 
@@ -27,7 +27,7 @@ cells = [
         "configuration* and $M$ is the home pose of the end-effector. No "
         "per-link DH bookkeeping: the whole robot is $n$ screws and one matrix.\n"
         "\n"
-        "**The TPU angle.** A chain of $n$ matrix products is a *sequential* "
+        "**The accelerator angle.** A chain of $n$ matrix products is a *sequential* "
         "computation — on an accelerator you express it as `lax.scan` so the "
         "compiler unrolls/pipes it, and you batch *configurations* with `vmap`: "
         "a workspace sweep of 100k FK evaluations is one compiled program, not "
@@ -107,7 +107,7 @@ cells = [
     md(
         "## 4. Batching: the workspace as an array axis\n"
         "\n"
-        "This is the core TPU-native idea. The reference answers \"what does "
+        "This is the core accelerator idea. The reference answers \"what does "
         "the reachable workspace look like\" with a Python loop of FK calls; "
         "here the *batch of configurations* is an array axis and `vmap` maps "
         "the single-configuration FK over it. One dispatch, 200,000 poses:"
@@ -153,7 +153,7 @@ cells = [
     md(
         "## 6. Parity: f32 device math vs f64 oracle\n"
         "\n"
-        "TPUs run f32 (and bf16 in the matmul units). The framework's policy — "
+        "Accelerators run f32 (and may round matmul inputs to TF32 or bf16). The framework's policy — "
         "set in SURVEY §3 and enforced by the test suite — is that every f32 "
         "kinematics result stays within ~1e-6 of the f64 oracle. Verify on a "
         "1000-configuration batch:"

@@ -3,7 +3,7 @@
 Topic parity with the reference's notebook 03
 (``/root/reference/notebooks/03_velocity_kinematics_jacobians.ipynb``):
 space/body Jacobians, twists-from-joint-rates, statics duality,
-manipulability — TPU-first: incremental-adjoint construction, autodiff
+manipulability — accelerator-first: incremental-adjoint construction, autodiff
 cross-checks, `vmap` over trajectories.
 
 Run: ``python build_nb03.py`` (from notebooks/).
@@ -182,7 +182,7 @@ cells = [
         "\n"
         "**Next: notebook 04** — inverse kinematics, where $J$ drives "
         "damped-least-squares iterations inside `lax.while_loop`, and whole "
-        "batches of IK problems race concurrently on one chip."
+        "batches of IK problems race concurrently on one device."
     ),
 ]
 

@@ -3,7 +3,7 @@
 Topic parity with the reference's notebook 05
 (``/root/reference/notebooks/05_dynamics.ipynb``): mass matrix,
 Coriolis/gravity terms, inverse and forward dynamics, trajectory
-rollouts — TPU-first: the O(n) RNEA twin, Cholesky forward dynamics,
+rollouts — accelerator-first: the O(n) RNEA twin, Cholesky forward dynamics,
 fused rollout engines, and the f32-vs-f64 accuracy contract.
 
 Run: ``python build_nb05.py`` (from notebooks/).
@@ -24,7 +24,7 @@ cells = [
         "1. the **mass matrix** $M$ and its structure\n"
         "2. **Coriolis** and **gravity** terms\n"
         "3. **inverse dynamics** two ways: composed, and O(n) **RNEA**\n"
-        "4. **forward dynamics** via Cholesky (why not LU — a TPU detail)\n"
+        "4. **forward dynamics** via Cholesky (why not LU)\n"
         "5. **trajectory rollouts**: the framework's throughput engine\n"
         "6. the **f32 accuracy contract**\n"
     ),
@@ -106,12 +106,12 @@ cells = [
         "assert float(jnp.abs(tau_composed - tau_rnea).max()) < 1e-10"
     ),
     md(
-        "## 4. Forward dynamics — and a TPU detail\n"
+        "## 4. Forward dynamics — and a factorization detail\n"
         "\n"
         "Forward dynamics solves $M\\ddot\\theta = \\tau - c - g$. The "
-        "factorization choice is a hardware story: XLA on TPU implements "
-        "LU only for f32/c64 — and $M$ is SPD anyway, so **Cholesky** is "
-        "both the numerically right and the TPU-portable factorization "
+        "factorization choice follows the matrix: "
+        "$M$ is SPD, so **Cholesky** is "
+        "the numerically right and the cheaper factorization "
         "(`dynamics.py::forward_dynamics`). Round trip through both "
         "directions:"
     ),
@@ -134,10 +134,10 @@ cells = [
         "\n"
         "Under the hood it auto-dispatches to fused engines: a "
         "constant-folded elementwise program of the whole RNEA step "
-        "(`ops/fd_step.py` — the 'cgen' engine), and on TPU a Pallas "
-        "VMEM-carry kernel that keeps the whole state resident in vector memory "
-        "across time steps (`ops/pallas_rollout.py`, ~1.5G exact-dynamics "
-        "steps/s on one v5e chip). Same math, same clamps — parity is "
+        "(`ops/fd_step.py` — the 'cgen' engine), and on a GPU a "
+        "whole-horizon kernel that keeps each scenario's state in registers "
+        "across time steps (`ops/triton_rollout.py`; its speed is measured in "
+        "`PERF.md`). Same math, same clamps — parity is "
         "pinned by tests."
     ),
     code(
@@ -165,7 +165,7 @@ cells = [
     md(
         "## 6. The f32 accuracy contract\n"
         "\n"
-        "TPUs compute in f32. Forward dynamics *conditions* the error: "
+        "The device engines compute in f32. Forward dynamics *conditions* the error: "
         "$\\ddot\\theta = M^{-1}(\\cdot)$ amplifies input rounding by "
         "$\\kappa(M)$, so raw f32-vs-f64 torque→acceleration comparisons can "
         "look alarming while being exactly the input-rounding floor (the "
@@ -199,11 +199,11 @@ cells = [
         "| $M(\\theta)$ | `mass_matrix` | $O(n^2)$, SPD |\n"
         "| $g(\\theta)$, $c(\\theta,\\dot\\theta)$ | `gravity_forces`, `coriolis_forces` | exact, analytic |\n"
         "| $\\tau$ | `inverse_dynamics` / `rnea` | composed / O(n) |\n"
-        "| $\\ddot\\theta$ | `forward_dynamics` | Cholesky (SPD + TPU-portable) |\n"
+        "| $\\ddot\\theta$ | `forward_dynamics` | Cholesky (SPD) |\n"
         "| rollouts | `forward_dynamics_trajectory` | fused engines, (B, N, n) batched |\n"
         "\n"
         "**Next: notebook 06** — singularities and manipulability: the SVD "
-        "view of the Jacobian, ellipsoids, and chip-scale Monte-Carlo "
+        "view of the Jacobian, ellipsoids, and device-scale Monte-Carlo "
         "workspace analysis."
     ),
 ]

@@ -3,7 +3,7 @@
 Topic parity with the reference's notebook 06
 (``/root/reference/notebooks/06_singularities.ipynb``): singularity
 detection, manipulability ellipsoids, condition number, workspace
-analysis — TPU-first: batched SVD sweeps, fused Monte-Carlo workspace
+analysis — accelerator-first: batched SVD sweeps, fused Monte-Carlo workspace
 sampling, and a singularity-aware trajectory audit.
 
 Run: ``python build_nb06.py`` (from notebooks/).
@@ -189,7 +189,7 @@ cells = [
         "product gives the Jacobian (03); inverting the Jacobian, carefully, "
         "gives IK (04); the same screw algebra runs Newton-Euler dynamics "
         "(05); and the SVD of the Jacobian tells you where all of it stops "
-        "working (06). On TPU, every one of those statements is a *batched, "
+        "working (06). On an accelerator, every one of those statements is a *batched, "
         "compiled program* — axes instead of loops, `scan` instead of "
         "recursion, `where` instead of branches — which is why a workspace "
         "study, an IK benchmark, or a million-scenario MPC fleet is one "

@@ -1,6 +1,6 @@
 """Tests for checkpoint/resume of solver state (SURVEY.md section 5:
 the reference has no computation-state checkpointing; this is the
-TPU build's orbax-style snapshot surface for long MPC runs)."""
+framework's orbax-style snapshot surface for long MPC runs)."""
 
 import os
 

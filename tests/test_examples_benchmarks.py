@@ -58,8 +58,8 @@ class TestExamples:
         assert "sigma_min minimized at" in out
         assert "audit a planned path" in out
 
-    def test_tpu_acceleration_demo_quick(self):
-        out = _run_demo("examples/advanced/tpu_acceleration_demo.py", "--quick")
+    def test_gpu_acceleration_demo_quick(self):
+        out = _run_demo("examples/advanced/gpu_acceleration_demo.py", "--quick")
         assert "Phase 3: trajectory pipeline" in out
         assert "plot saved" in out or "matplotlib unavailable" in out
 

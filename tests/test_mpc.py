@@ -244,14 +244,13 @@ class TestParallelRiccati:
         )
 
 
-@pytest.mark.slow
 class TestFusedTrackingMPC:
-    """Latency-fused solver (mpc/fused.py) vs the generic iLQR."""
+    """Tracking-MPC builder (mpc/tracking.py) vs the generic iLQR."""
 
     def test_matches_generic_solver(self):
         from manipulapy_tpu.models import catalog
         from manipulapy_tpu.mpc import ILQRParams, ilqr, make_step_fn, make_tracking_costs
-        from manipulapy_tpu.mpc.fused import build_tracking_mpc
+        from manipulapy_tpu.mpc import build_tracking_mpc
 
         model = catalog.two_link_planar(dtype=jnp.float32)
         q_goal = jnp.asarray([0.6, -0.4], jnp.float32)
@@ -262,55 +261,42 @@ class TestFusedTrackingMPC:
             step_fn, running, terminal, jnp.zeros(4, jnp.float32),
             jnp.zeros((H, 2), jnp.float32), ILQRParams(horizon=H, dt=dt, iterations=iters),
         )
-        mpc = build_tracking_mpc(model, q_goal, H, dt, iterations=iters, interpret=True)
+        mpc = build_tracking_mpc(model, q_goal, H, dt, iterations=iters)
         us, xs, cost = mpc.solve(jnp.zeros(4, jnp.float32), jnp.zeros((H, 2), jnp.float32))
-        # Same math end-to-end (identical accepted trajectories): the fused
-        # pipeline is a re-kernelization, not an approximation.
+        # Same math end-to-end: the builder wraps this very solver.
         np.testing.assert_allclose(float(cost), float(res.cost), rtol=1e-5)
-        # f32 roundoff: the two pipelines fuse/order the same math
-        # differently (measured drift ~1e-4 on the terminal state).
+        # f32 roundoff: the two programs may fuse/order the same math
+        # differently.
         np.testing.assert_allclose(np.asarray(xs[-1]), np.asarray(res.xs[-1]), atol=5e-4)
         np.testing.assert_allclose(np.asarray(us), np.asarray(res.us), atol=5e-3)
 
     def test_respects_torque_limits(self):
         from manipulapy_tpu.models import catalog
-        from manipulapy_tpu.mpc.fused import build_tracking_mpc
+        from manipulapy_tpu.mpc import build_tracking_mpc
 
         model = catalog.two_link_planar(dtype=jnp.float32)
         mpc = build_tracking_mpc(
             model, jnp.asarray([1.5, 0.5], jnp.float32), 20, 0.02,
-            iterations=4, u_limit=jnp.asarray([3.0, 2.0]), interpret=True,
+            iterations=4, u_limit=jnp.asarray([3.0, 2.0]),
         )
         us, xs, cost = mpc.solve(jnp.zeros(4, jnp.float32), jnp.zeros((20, 2), jnp.float32))
         assert float(jnp.max(jnp.abs(us[:, 0]))) <= 3.0 + 1e-5
         assert float(jnp.max(jnp.abs(us[:, 1]))) <= 2.0 + 1e-5
 
     def test_linearize_matches_jacfwd(self):
-        """The in-kernel jax.linearize A,B equal jacfwd of the step."""
+        """The plane-wise cgen step the builders solve with has the same
+        A = df/dx as the generic step."""
         from manipulapy_tpu.models import catalog
         from manipulapy_tpu.mpc import make_step_fn
-        from manipulapy_tpu.mpc.fused import build_tracking_mpc
+        from manipulapy_tpu.ops.fd_step import build_fd_step_planes
 
         model = catalog.two_link_planar(dtype=jnp.float32)
         H, dt = 10, 0.02
-        mpc_mod = __import__("manipulapy_tpu.mpc.fused", fromlist=["build_tracking_mpc"])
-        # Build and reach into the solver's linearize via a fresh instance.
-        import manipulapy_tpu.mpc.fused as fused
-
-        # reconstruct: use the same step the fused solver embeds
         step_fn = make_step_fn(model, dt)
         rng = np.random.default_rng(3)
         xs = jnp.asarray(rng.uniform(-0.5, 0.5, (H, 4)), jnp.float32)
         us = jnp.asarray(rng.uniform(-2, 2, (H, 2)), jnp.float32)
         A_ref = jax.vmap(jax.jacfwd(step_fn, 0))(xs, us)
-        B_ref = jax.vmap(jax.jacfwd(step_fn, 1))(xs, us)
-
-        mpc = fused.build_tracking_mpc(
-            model, jnp.zeros(2, jnp.float32), H, dt, interpret=True
-        )
-        # the linearize closure is not exported; validate through solve
-        # equivalence instead when private. Recreate it directly:
-        from manipulapy_tpu.ops.fd_step import build_fd_step_planes
 
         n, step_planes = build_fd_step_planes(
             model, dt=dt, clip_limits=True, clip_velocity=False
@@ -328,14 +314,14 @@ class TestFusedTrackingMPC:
 
 
 class TestBatchFusedMPC:
-    """Batched fused solver (mpc/fused_batch.py): scenarios on the
-    (8, 128) tile axes, per-scenario goals/line-search/regularization.
-    Parity bar: each scenario matches an independent generic iLQR solve."""
+    """Batched builder (mpc/tracking.py): per-scenario goals, line search
+    and regularization. Parity bar: each scenario matches an independent
+    generic iLQR solve."""
 
     def test_matches_generic_per_scenario(self):
         from manipulapy_tpu.models import catalog
         from manipulapy_tpu.mpc import ILQRParams, ilqr, make_step_fn, make_tracking_costs
-        from manipulapy_tpu.mpc.fused_batch import build_batch_tracking_mpc
+        from manipulapy_tpu.mpc import build_batch_tracking_mpc
 
         model = catalog.two_link_planar(dtype=jnp.float32)
         H, dt, iters, B = 20, 0.02, 4, 3
@@ -344,7 +330,7 @@ class TestBatchFusedMPC:
         goals = jnp.asarray(rng.uniform(-0.8, 0.8, (B, 2)), jnp.float32)
 
         mpc = build_batch_tracking_mpc(
-            model, goals, B, H, dt, iterations=iters, interpret=True
+            model, goals, B, H, dt, iterations=iters
         )
         us_b, xs_b, cost_b = mpc.solve(x0s, jnp.zeros((B, H, 2), jnp.float32))
         assert us_b.shape == (B, H, 2) and xs_b.shape == (B, H + 1, 4)
@@ -366,13 +352,13 @@ class TestBatchFusedMPC:
 
     def test_shared_goal_and_torque_limits(self):
         from manipulapy_tpu.models import catalog
-        from manipulapy_tpu.mpc.fused_batch import build_batch_tracking_mpc
+        from manipulapy_tpu.mpc import build_batch_tracking_mpc
 
         model = catalog.two_link_planar(dtype=jnp.float32)
         B, H = 2, 12
         mpc = build_batch_tracking_mpc(
             model, jnp.asarray([1.0, 0.3], jnp.float32), B, H, 0.02,
-            iterations=3, u_limit=jnp.asarray([3.0, 2.0]), interpret=True,
+            iterations=3, u_limit=jnp.asarray([3.0, 2.0]),
         )
         x0s = jnp.zeros((B, 4), jnp.float32).at[1, 0].set(0.2)
         us, xs, cost = mpc.solve(x0s, jnp.zeros((B, H, 2), jnp.float32))
@@ -386,7 +372,7 @@ class TestBatchFusedMPC:
     def test_goal_argument_matches_baked(self):
         """solve(..., q_goal) must equal a solver built with those goals."""
         from manipulapy_tpu.models import catalog
-        from manipulapy_tpu.mpc.fused_batch import build_batch_tracking_mpc
+        from manipulapy_tpu.mpc import build_batch_tracking_mpc
 
         model = catalog.two_link_planar(dtype=jnp.float32)
         B, H = 2, 10
@@ -394,8 +380,8 @@ class TestBatchFusedMPC:
         g2 = jnp.asarray([[-0.3, 0.6], [0.7, 0.1]], jnp.float32)
         x0 = jnp.zeros((B, 4), jnp.float32)
         us0 = jnp.zeros((B, H, 2), jnp.float32)
-        mpc1 = build_batch_tracking_mpc(model, g1, B, H, 0.02, iterations=3, interpret=True)
-        mpc2 = build_batch_tracking_mpc(model, g2, B, H, 0.02, iterations=3, interpret=True)
+        mpc1 = build_batch_tracking_mpc(model, g1, B, H, 0.02, iterations=3)
+        mpc2 = build_batch_tracking_mpc(model, g2, B, H, 0.02, iterations=3)
         a = mpc1.solve(x0, us0, g2)
         b = mpc2.solve(x0, us0)
         for x, y in zip(a, b):
@@ -404,13 +390,13 @@ class TestBatchFusedMPC:
     def test_shared_goal_retarget_runtime(self):
         """A (n,) runtime goal broadcasts like the build-time path."""
         from manipulapy_tpu.models import catalog
-        from manipulapy_tpu.mpc.fused_batch import build_batch_tracking_mpc
+        from manipulapy_tpu.mpc import build_batch_tracking_mpc
 
         model = catalog.two_link_planar(dtype=jnp.float32)
         B, H = 2, 8
         mpc = build_batch_tracking_mpc(
             model, jnp.asarray([0.5, -0.2], jnp.float32), B, H, 0.02,
-            iterations=2, interpret=True,
+            iterations=2,
         )
         x0 = jnp.zeros((B, 4), jnp.float32)
         us0 = jnp.zeros((B, H, 2), jnp.float32)
@@ -423,12 +409,12 @@ class TestBatchFusedMPC:
     def test_batch_mpc_step_receding_horizon(self):
         from manipulapy_tpu.models import catalog
         from manipulapy_tpu.mpc import make_step_fn
-        from manipulapy_tpu.mpc.fused_batch import batch_mpc_step, build_batch_tracking_mpc
+        from manipulapy_tpu.mpc import batch_mpc_step, build_batch_tracking_mpc
 
         model = catalog.two_link_planar(dtype=jnp.float32)
         B, H = 2, 10
         goals = jnp.asarray([[0.6, -0.3], [-0.4, 0.5]], jnp.float32)
-        mpc = build_batch_tracking_mpc(model, goals, B, H, 0.02, iterations=3, interpret=True)
+        mpc = build_batch_tracking_mpc(model, goals, B, H, 0.02, iterations=3)
         step = make_step_fn(model, 0.02)
         x = jnp.zeros((B, 4), jnp.float32)
         us_warm = jnp.zeros((B, H, 2), jnp.float32)
@@ -443,7 +429,7 @@ class TestBatchFusedMPC:
 class TestFusedGoalArgument:
     def test_single_solver_goal_argument_matches_baked(self):
         from manipulapy_tpu.models import catalog
-        from manipulapy_tpu.mpc.fused import build_tracking_mpc
+        from manipulapy_tpu.mpc import build_tracking_mpc
 
         model = catalog.two_link_planar(dtype=jnp.float32)
         H = 12
@@ -451,8 +437,8 @@ class TestFusedGoalArgument:
         g2 = jnp.asarray([-0.3, 0.6], jnp.float32)
         x0 = jnp.zeros(4, jnp.float32)
         us0 = jnp.zeros((H, 2), jnp.float32)
-        mpc1 = build_tracking_mpc(model, g1, H, 0.02, iterations=3, interpret=True)
-        mpc2 = build_tracking_mpc(model, g2, H, 0.02, iterations=3, interpret=True)
+        mpc1 = build_tracking_mpc(model, g1, H, 0.02, iterations=3)
+        mpc2 = build_tracking_mpc(model, g2, H, 0.02, iterations=3)
         a = mpc1.solve(x0, us0, g2)
         b = mpc2.solve(x0, us0)
         for x, y in zip(a, b):

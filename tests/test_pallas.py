@@ -1,227 +1,204 @@
-"""Pallas kernel parity tests (interpret mode on CPU; compiled on TPU).
+"""Rollout kernel tests (ops/triton_rollout.py) and the dispatch policy.
 
-The same discipline as the reference's GPU<->CPU consistency checks
-(``path_planning.py:2620-2632``): the hand-written kernel must match the
-jnp reference implementation to f32 roundoff.
+The kernel runs in the Pallas interpreter here and is compared with the
+cgen XLA scan (``ops/fd_step.py::build_rollout``) — the same emitted
+dynamics, so agreement is at f32 roundoff. Its Triton lowering is
+checked by lowering for CUDA on this host (no card needed); the compiled
+kernel on the card is checked by ``chip_smoke.py``. Small robots
+(2-link planar, 3-link chain) keep the interpret-mode compiles cheap.
 """
+
+import os
+import shutil
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from manipulapy_tpu.core.time_scaling import scaling_profile
-from manipulapy_tpu.ops.pallas_kernels import (
-    cartesian_potential_pallas,
-    pallas_available,
-    trajectory_pallas,
-)
-from manipulapy_tpu.potential_field import cartesian_potential_field
+from manipulapy_tpu.models import catalog
+from manipulapy_tpu.ops import dispatch
+from manipulapy_tpu.ops.fd_step import build_rollout
+from manipulapy_tpu.ops.triton_rollout import build_triton_rollout
 
-INTERP = not pallas_available()
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-
-class TestTrajectoryKernel:
-    @pytest.mark.parametrize("method", [3, 5, 1])
-    def test_matches_reference_profile(self, method):
-        B, J, N, Tf = 3, 6, 300, 2.0
-        rng = np.random.default_rng(0)
-        start = jnp.asarray(rng.uniform(-1, 1, (B, J)), dtype=jnp.float32)
-        end = jnp.asarray(rng.uniform(-1, 1, (B, J)), dtype=jnp.float32)
-        pos, vel, acc = trajectory_pallas(start, end, Tf, N, method, interpret=INTERP)
-
-        s, sd, sdd = scaling_profile(Tf, N, method, dtype=jnp.float32)
-        delta = end - start
-        pos_ref = start[:, None, :] + s[None, :, None] * delta[:, None, :]
-        vel_ref = sd[None, :, None] * delta[:, None, :]
-        acc_ref = sdd[None, :, None] * delta[:, None, :]
-        np.testing.assert_allclose(np.asarray(pos), np.asarray(pos_ref), atol=2e-6)
-        np.testing.assert_allclose(np.asarray(vel), np.asarray(vel_ref), atol=2e-5)
-        np.testing.assert_allclose(np.asarray(acc), np.asarray(acc_ref), atol=2e-4)
-
-    def test_boundary_conditions(self):
-        start = jnp.zeros((1, 4), dtype=jnp.float32)
-        end = jnp.full((1, 4), 1.0, dtype=jnp.float32)
-        pos, vel, acc = trajectory_pallas(start, end, 1.5, 128, 5, interpret=INTERP)
-        np.testing.assert_allclose(np.asarray(pos[0, 0]), 0.0, atol=1e-6)
-        np.testing.assert_allclose(np.asarray(pos[0, -1]), 1.0, atol=1e-6)
-        np.testing.assert_allclose(np.asarray(vel[0, 0]), 0.0, atol=1e-6)
-        np.testing.assert_allclose(np.asarray(vel[0, -1]), 0.0, atol=1e-5)
-
-    def test_non_divisible_N(self):
-        """N not a multiple of the lane tile exercises the padded block."""
-        start = jnp.zeros((2, 3), dtype=jnp.float32)
-        end = jnp.ones((2, 3), dtype=jnp.float32)
-        pos, _, _ = trajectory_pallas(start, end, 1.0, 101, 3, interpret=INTERP)
-        assert pos.shape == (2, 101, 3)
-        np.testing.assert_allclose(np.asarray(pos[:, -1]), 1.0, atol=1e-6)
+MODELS = {
+    "planar2": lambda: catalog.two_link_planar(dtype=jnp.float32),
+    "chain3": lambda: catalog.serial_chain(3, dtype=jnp.float32),
+}
 
 
-class TestPotentialKernel:
-    def test_matches_reference(self):
-        rng = np.random.default_rng(1)
-        P, O = 400, 5
-        pts = jnp.asarray(rng.uniform(-1, 1, (P, 3)), dtype=jnp.float32)
-        goal = jnp.asarray([0.3, -0.2, 0.5], dtype=jnp.float32)
-        obstacles = jnp.asarray(rng.uniform(-1, 1, (O, 3)), dtype=jnp.float32)
-        U, g = cartesian_potential_pallas(pts, goal, obstacles, 0.6, interpret=INTERP)
-        U_ref, g_ref = cartesian_potential_field(pts, goal, obstacles, 0.6)
-        np.testing.assert_allclose(np.asarray(U), np.asarray(U_ref), rtol=1e-4, atol=1e-5)
-        np.testing.assert_allclose(np.asarray(g), np.asarray(g_ref), rtol=1e-4, atol=1e-4)
-
-    def test_outside_influence_is_attractive_only(self):
-        pts = jnp.asarray([[2.0, 0.0, 0.0]], dtype=jnp.float32)
-        goal = jnp.zeros(3, dtype=jnp.float32)
-        obstacles = jnp.asarray([[-2.0, 0.0, 0.0]], dtype=jnp.float32)
-        U, g = cartesian_potential_pallas(pts, goal, obstacles, 0.5, interpret=INTERP)
-        assert float(U[0]) == pytest.approx(2.0)  # 0.5 * |p|^2
-        np.testing.assert_allclose(np.asarray(g[0]), [2.0, 0.0, 0.0], atol=1e-6)
+def _data(n, B, N, seed=0):
+    k1, k2, k3 = jax.random.split(jax.random.PRNGKey(seed), 3)
+    q0 = jax.random.uniform(k1, (B, n), minval=-1, maxval=1, dtype=jnp.float32)
+    dq0 = jax.random.uniform(k2, (B, n), minval=-0.5, maxval=0.5, dtype=jnp.float32)
+    taus = jax.random.uniform(k3, (B, N, n), minval=-1, maxval=1, dtype=jnp.float32)
+    return q0, dq0, taus
 
 
-@pytest.mark.slow
-class TestPallasRollout:
-    """Fused Pallas rollout (ops/pallas_rollout.py) vs the cgen XLA scan —
-    same emitted dynamics, so agreement is f32-roundoff-level (FMA
-    ordering differs between Mosaic and XLA fusion)."""
+class TestTritonRolloutInterpret:
+    @pytest.mark.parametrize("intRes", [1, 3])
+    @pytest.mark.parametrize("robot", sorted(MODELS))
+    def test_matches_cgen_scan(self, robot, intRes):
+        model = MODELS[robot]()
+        q0, dq0, taus = _data(model.num_joints, 64, 6)
+        ker = build_triton_rollout(model, dt=0.01, intRes=intRes, block=32,
+                                   interpret=True)
+        ref = build_rollout(model, dt=0.01, intRes=intRes)
+        # ddq reaches ~1e2 rad/s^2 here; tolerances follow each quantity's
+        # scale (f32 fusion order, not a difference in the math).
+        for a, b, tol in zip(ker(q0, dq0, taus), ref(q0, dq0, taus), (1e-5, 1e-4, 1e-2)):
+            np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=tol)
 
-    def _data(self, B, N):
-        from manipulapy_tpu.models import catalog
-
-        model = catalog.ur5(dtype=jnp.float32)
-        key = jax.random.PRNGKey(0)
-        k1, k2, k3 = jax.random.split(key, 3)
-        q0 = jax.random.uniform(k1, (B, 6), minval=-1, maxval=1, dtype=jnp.float32)
-        dq0 = jax.random.uniform(k2, (B, 6), minval=-0.5, maxval=0.5, dtype=jnp.float32)
-        taus = jax.random.uniform(k3, (B, N, 6), minval=-5, maxval=5, dtype=jnp.float32)
-        return model, q0, dq0, taus
-
-    def test_matches_xla_rollout(self):
-        from manipulapy_tpu.ops.fd_step import build_rollout
-        from manipulapy_tpu.ops.pallas_rollout import build_pallas_rollout
-
-        model, q0, dq0, taus = self._data(1024, 4)
-        ref = build_rollout(model, dt=0.01, intRes=1)
-        pal = build_pallas_rollout(model, dt=0.01, intRes=1, interpret=True)
-        a = ref(q0, dq0, taus)
-        b = pal(q0, dq0, taus)
-        for x, y, tol in zip(a, b, (1e-4, 1e-3, 2e-1)):
-            # ddq reaches ~1e3 on wrist joints; tolerances are relative to
-            # each quantity's scale (f32 conditioning, not a math diff).
-            assert float(jnp.max(jnp.abs(x - y))) <= tol
-
-    def test_padding_matches_unpadded(self):
-        from manipulapy_tpu.ops.pallas_rollout import build_pallas_rollout
-
-        model, q0, dq0, taus = self._data(1024, 3)
-        pal = build_pallas_rollout(model, dt=0.01, intRes=1, interpret=True)
-        full = pal(q0, dq0, taus)
-        part = pal(q0[:100], dq0[:100], taus[:100])
+    @pytest.mark.parametrize("B", [1, 100, 257])
+    def test_ragged_batch_matches_unpadded(self, B):
+        """B is padded to a block multiple inside the wrapper; each
+        scenario's result must not depend on its neighbours or the pad."""
+        model = MODELS["planar2"]()
+        q0, dq0, taus = _data(2, 300, 4, seed=1)
+        ker = build_triton_rollout(model, block=64, interpret=True)
+        full = ker(q0, dq0, taus)
+        part = ker(q0[:B], dq0[:B], taus[:B])
         for x, y in zip(full, part):
-            np.testing.assert_allclose(np.asarray(x[:100]), np.asarray(y), atol=1e-6)
-        assert part[0].shape == (100, 3, 6)
+            assert y.shape == (B, 4, 2)
+            np.testing.assert_array_equal(np.asarray(x[:B]), np.asarray(y))
 
-    def test_intres_substeps(self):
-        from manipulapy_tpu.ops.fd_step import build_rollout
-        from manipulapy_tpu.ops.pallas_rollout import build_pallas_rollout
+    def test_output_contract(self):
+        """Row 0 is the initial state; ddqs[t] is the step's acceleration;
+        row t+1 follows from row t by the semi-implicit Euler update."""
+        model = MODELS["chain3"]()
+        q0, dq0, taus = _data(3, 8, 5, seed=2)
+        qs, dqs, ddqs = build_triton_rollout(
+            model, dt=0.01, block=8, interpret=True
+        )(q0, dq0, taus)
+        assert qs.shape == dqs.shape == ddqs.shape == (8, 5, 3)
+        assert qs.dtype == jnp.float32
+        np.testing.assert_array_equal(np.asarray(qs[:, 0]), np.asarray(q0))
+        np.testing.assert_array_equal(np.asarray(dqs[:, 0]), np.asarray(dq0))
+        dq1 = np.asarray(dqs[:, 0] + 0.01 * ddqs[:, 0])
+        np.testing.assert_allclose(np.asarray(dqs[:, 1]), dq1, atol=1e-6)
 
-        model, q0, dq0, taus = self._data(1024, 2)
-        ref = build_rollout(model, dt=0.01, intRes=3)
-        pal = build_pallas_rollout(model, dt=0.01, intRes=3, interpret=True)
-        np.testing.assert_allclose(
-            np.asarray(ref(q0, dq0, taus)[0]), np.asarray(pal(q0, dq0, taus)[0]), atol=1e-4
-        )
+    def test_block_must_be_power_of_two(self):
+        with pytest.raises(ValueError, match="power of two"):
+            build_triton_rollout(MODELS["planar2"](), block=96)
 
+    def test_intres_validated(self):
+        with pytest.raises(ValueError, match="intRes"):
+            build_triton_rollout(MODELS["planar2"](), intRes=0)
 
-class TestDispatch:
-    def test_pallas_wanted_off_tpu(self):
-        from manipulapy_tpu.ops import dispatch
-
-        # CPU backend in tests: compiled Pallas never selected by default.
-        assert not dispatch.pallas_wanted(1 << 20)
-
-    def test_env_overrides(self, monkeypatch):
-        from manipulapy_tpu.ops import dispatch
-
-        monkeypatch.setenv("MANIPULAPY_TPU_FORCE_PALLAS", "1")
-        assert dispatch.pallas_wanted(1)
-        monkeypatch.setenv("MANIPULAPY_TPU_NO_PALLAS", "1")
-        assert not dispatch.pallas_wanted(1 << 20)
-
-    def test_rollout_engine_cpu_is_xla(self):
-        from manipulapy_tpu.models import catalog
-        from manipulapy_tpu.ops import dispatch
-
+    @pytest.mark.parametrize("block", [32, 128, 256])
+    def test_lowers_for_cuda(self, block):
+        """The kernel's Triton lowering at real widths (UR5, N=50, ragged
+        B) runs here without a card: Pallas emits the Triton module at
+        lowering time, which rejects non-power-of-two value shapes and
+        unsupported primitives."""
         model = catalog.ur5(dtype=jnp.float32)
-        roll = dispatch.rollout_engine(model, dt=0.01)
-        q0 = jnp.zeros((8, 6), jnp.float32)
-        taus = jnp.zeros((8, 5, 6), jnp.float32)
-        qs, dqs, ddqs = roll(q0, q0, taus)
-        assert qs.shape == (8, 5, 6)
+        ker = build_triton_rollout(model, block=block)
+        B, N = 1000, 50
+        args = (
+            jax.ShapeDtypeStruct((B, 6), jnp.float32),
+            jax.ShapeDtypeStruct((B, 6), jnp.float32),
+            jax.ShapeDtypeStruct((B, N, 6), jnp.float32),
+        )
+        text = ker.trace(*args).lower(lowering_platforms=("cuda",)).as_text()
+        assert "triton" in text
 
 
-class TestTiledIO:
-    """tiled_io engine contract: bit-identical to the staged path (same
-    kernel, same blocks — only the XLA transposes are skipped) and
-    stage_batch/unstage_batch are exact inverses."""
+class TestDispatchPolicy:
+    @pytest.mark.parametrize("dtype", [jnp.float32, jnp.float64])
+    @pytest.mark.parametrize("backend", ["gpu", "cpu"])
+    def test_kernel_only_for_f32_on_gpu(self, monkeypatch, backend, dtype):
+        monkeypatch.setattr(jax, "default_backend", lambda: backend)
+        want = backend == "gpu" and dtype == jnp.float32
+        assert dispatch.rollout_kernel_wanted(dtype) is want
 
-    def test_stage_unstage_roundtrip(self):
-        from manipulapy_tpu.ops.pallas_rollout import stage_batch, unstage_batch
+    def test_unbatched_never_takes_kernel(self, monkeypatch):
+        monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+        assert not dispatch.rollout_kernel_wanted(jnp.float32, batched=False)
 
-        rng = np.random.default_rng(0)
-        for shape in ((100, 6), (1500, 20, 6), (1024, 4)):
-            x = jnp.asarray(rng.normal(size=shape), jnp.float32)
-            t = stage_batch(x)
-            assert t.shape[-2:] == (8, 128)
-            np.testing.assert_array_equal(
-                np.asarray(unstage_batch(t, shape[0])), np.asarray(x)
-            )
+    @pytest.mark.parametrize("B", [1, 4096])
+    def test_public_api_serves_scan_on_cpu(self, monkeypatch, B):
+        """On the CPU every batch, small or large, is served by the cgen
+        scan under its own cache key."""
+        from manipulapy_tpu import trajectory
 
-    def _planar_data(self, B, N):
-        # 2-link planar keeps the interpret-mode XLA:CPU compiles cheap
-        # (each n=6 engine variant costs minutes to compile on the 2-vCPU
-        # CI host; cross-engine ur5 parity is covered by TestPallasRollout
-        # with a single engine build).
-        from manipulapy_tpu.models import catalog
+        monkeypatch.setattr(trajectory, "_ENGINE_CACHE", {})
+        model = MODELS["planar2"]()
+        q0, dq0, taus = _data(2, B, 4, seed=4)
+        qs, dqs, ddqs = trajectory.forward_dynamics_trajectory(model, q0, dq0, taus)
+        assert qs.shape == (B, 4, 2)
+        assert [k[-1] for k in trajectory._ENGINE_CACHE] == ["cgen"]
 
-        model = catalog.two_link_planar(dtype=jnp.float32)
-        key = jax.random.PRNGKey(1)
-        k1, k2, k3 = jax.random.split(key, 3)
-        q0 = jax.random.uniform(k1, (B, 2), minval=-1, maxval=1, dtype=jnp.float32)
-        dq0 = jax.random.uniform(k2, (B, 2), minval=-0.5, maxval=0.5, dtype=jnp.float32)
-        taus = jax.random.uniform(k3, (B, N, 2), minval=-1, maxval=1, dtype=jnp.float32)
-        return model, q0, dq0, taus
+    @pytest.mark.parametrize("B", [1, 259])
+    def test_public_api_serves_kernel_on_gpu(self, monkeypatch, B):
+        """forward_dynamics_trajectory routes an f32 batch of any size to
+        the kernel when the backend is a GPU (interpreted here) and caches
+        it under its own key; results match the scan."""
+        from manipulapy_tpu import trajectory
+        from manipulapy_tpu.ops import triton_rollout
 
-    def test_tiled_io_matches_staged(self):
-        from manipulapy_tpu.ops.pallas_rollout import (
-            build_pallas_rollout,
-            stage_batch,
-            unstage_batch,
+        built = []
+
+        def interpreted(*args, **kw):
+            built.append(kw)
+            return build_triton_rollout(*args, **kw, interpret=True)
+
+        monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+        monkeypatch.setattr(triton_rollout, "build_triton_rollout", interpreted)
+        monkeypatch.setattr(trajectory, "_ENGINE_CACHE", {})
+        model = MODELS["planar2"]()
+        q0, dq0, taus = _data(2, B, 4, seed=3)
+        out = trajectory.forward_dynamics_trajectory(model, q0, dq0, taus)
+        assert len(built) == 1
+        assert [k[-1] for k in trajectory._ENGINE_CACHE] == ["kernel"]
+        ref = build_rollout(model, dt=0.01)(q0, dq0, taus)
+        for a, b, tol in zip(out, ref, (1e-5, 1e-4, 1e-2)):
+            np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=tol)
+
+
+class TestConfigureCache:
+    def test_env_dir_is_used_and_nothing_set(self, monkeypatch, tmp_path):
+        from manipulapy_tpu.utils.config import configure_cache
+
+        calls = []
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+        monkeypatch.setattr(jax.config, "update", lambda *a: calls.append(a))
+        assert configure_cache() == str(tmp_path)
+        assert calls == []
+
+    def test_default_is_fixed_checkout_path(self, monkeypatch):
+        from manipulapy_tpu.utils.config import configure_cache
+
+        calls = []
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+        monkeypatch.setattr(jax.config, "update", lambda *a: calls.append(a))
+        path = configure_cache()
+        assert path == os.path.join(REPO, ".jax_cache")
+        assert ("jax_compilation_cache_dir", path) in calls
+        assert configure_cache() == path  # same path on every call
+
+
+class TestChipSmokeRefuses:
+    """chip_smoke.py must fail, and print no result line, where there is
+    no GPU and where the program is missing."""
+
+    def _run(self, script, cwd):
+        env = dict(os.environ, JAX_PLATFORMS="cpu")
+        return subprocess.run(
+            [sys.executable, script], cwd=cwd, env=env,
+            capture_output=True, text=True, timeout=300,
         )
 
-        B = 64
-        model, q0, dq0, taus = self._planar_data(B, 10)
-        staged = build_pallas_rollout(model, dt=0.01, interpret=True)
-        tiled = build_pallas_rollout(model, dt=0.01, interpret=True, tiled_io=True)
-        ref = staged(q0, dq0, taus)
-        out = tiled(stage_batch(q0), stage_batch(dq0), stage_batch(taus))
-        for a, b in zip(ref, out):
-            np.testing.assert_array_equal(np.asarray(a), np.asarray(unstage_batch(b, B)))
+    def test_exits_nonzero_without_gpu(self):
+        proc = self._run(os.path.join(REPO, "chip_smoke.py"), REPO)
+        assert proc.returncode != 0
+        assert '"ok": true' not in proc.stdout
 
-    def test_time_tile_any_divisor_matches(self):
-        """Different time tiles = identical math; agreement is f32
-        roundoff (state round-trips scratch at different points, and a
-        1-ulp seed amplifies through the dynamics — hence mild torques
-        and roundoff-scale tolerances, not bit equality)."""
-        from manipulapy_tpu.ops.pallas_rollout import build_pallas_rollout
-
-        model, q0, dq0, taus = self._planar_data(8, 6)
-        ref = build_pallas_rollout(model, dt=0.01, interpret=True, time_tile=1)(q0, dq0, taus)
-        for tt in (3, 6):
-            out = build_pallas_rollout(model, dt=0.01, interpret=True, time_tile=tt)(q0, dq0, taus)
-            np.testing.assert_allclose(np.asarray(ref[0]), np.asarray(out[0]), atol=1e-6)
-            np.testing.assert_allclose(np.asarray(ref[1]), np.asarray(out[1]), atol=1e-4)
-            np.testing.assert_allclose(
-                np.asarray(ref[2]), np.asarray(out[2]), rtol=1e-4, atol=1e-2
-            )
-        with pytest.raises(ValueError):
-            build_pallas_rollout(model, dt=0.01, interpret=True, time_tile=5)(q0, dq0, taus)
+    def test_exits_nonzero_alone(self, tmp_path):
+        shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path)
+        proc = self._run(os.path.join(tmp_path, "chip_smoke.py"), tmp_path)
+        assert proc.returncode != 0
+        assert '"ok": true' not in proc.stdout

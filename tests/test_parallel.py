@@ -1,5 +1,5 @@
 """Distributed-layer tests on the 8-device virtual CPU mesh (the
-multi-chip testing strategy: xla_force_host_platform_device_count in
+multi-device testing strategy: xla_force_host_platform_device_count in
 conftest — SURVEY.md section 4's 'GPU-without-GPU' analogue)."""
 
 import jax
@@ -71,6 +71,54 @@ class TestShardedCompute:
         assert qs.shape == (B, N, 6)
         assert np.all(np.isfinite(np.asarray(qs)))
 
+    @pytest.mark.parametrize("B", [13, 64])
+    def test_distributed_rollout_runs_dispatched_engine(self, mesh, B):
+        """Each device runs the engine forward_dynamics_trajectory picks
+        (the cgen scan on the CPU) on its shard; ragged B is padded and
+        un-padded; the result is the one-device engine's."""
+        from manipulapy_tpu import trajectory
+        from manipulapy_tpu.ops.fd_step import build_rollout
+
+        model = catalog.two_link_planar(dtype=jnp.float32)
+        rng = np.random.default_rng(4)
+        q0 = jnp.asarray(rng.uniform(-1, 1, (B, 2)), dtype=jnp.float32)
+        dq0 = jnp.asarray(rng.uniform(-0.5, 0.5, (B, 2)), dtype=jnp.float32)
+        taus = jnp.asarray(rng.uniform(-1, 1, (B, 4, 2)), dtype=jnp.float32)
+        trajectory._ENGINE_CACHE.clear()
+        out = parallel.distributed_rollout(model, mesh, q0, dq0, taus, dt=0.01)
+        assert [k[-1] for k in trajectory._ENGINE_CACHE] == ["cgen"]
+        assert out[0].sharding.num_devices == 8
+        # Tolerances per quantity scale (ddq reaches ~1e2 rad/s^2): the
+        # shard's program is compiled for another batch width, so f32
+        # sums may round differently.
+        ref = build_rollout(model, dt=0.01)(q0, dq0, taus)
+        for a, b, tol in zip(out, ref, (1e-5, 1e-4, 1e-2)):
+            assert a.shape == (B, 4, 2)
+            np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=tol)
+
+    def test_distributed_rollout_runs_kernel_on_gpu(self, mesh, monkeypatch):
+        """With a GPU backend the sharded rollout runs the rollout kernel
+        on every shard (interpreted here)."""
+        from manipulapy_tpu import trajectory
+        from manipulapy_tpu.ops import triton_rollout
+        from manipulapy_tpu.ops.fd_step import build_rollout
+
+        build = triton_rollout.build_triton_rollout
+        monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+        monkeypatch.setattr(triton_rollout, "build_triton_rollout",
+                            lambda *a, **kw: build(*a, **kw, block=8, interpret=True))
+        monkeypatch.setattr(trajectory, "_ENGINE_CACHE", {})
+        model = catalog.two_link_planar(dtype=jnp.float32)
+        rng = np.random.default_rng(5)
+        q0 = jnp.asarray(rng.uniform(-1, 1, (20, 2)), dtype=jnp.float32)
+        dq0 = jnp.zeros((20, 2), dtype=jnp.float32)
+        taus = jnp.asarray(rng.uniform(-1, 1, (20, 3, 2)), dtype=jnp.float32)
+        qs, dqs, _ = parallel.distributed_rollout(model, mesh, q0, dq0, taus, dt=0.01)
+        assert [k[-1] for k in trajectory._ENGINE_CACHE] == ["kernel"]
+        ref = build_rollout(model, dt=0.01)(q0, dq0, taus)
+        np.testing.assert_allclose(np.asarray(qs), np.asarray(ref[0]), atol=1e-5)
+        np.testing.assert_allclose(np.asarray(dqs), np.asarray(ref[1]), atol=1e-4)
+
     @pytest.mark.slow
     def test_distributed_ik(self, mesh, ur5_f32):
         from manipulapy_tpu.kinematics import forward_kinematics
@@ -115,94 +163,3 @@ class TestScalingReport:
         eff = parallel.scaling_efficiency({1: 10.0, 2: 10.5, 4: 11.0})
         assert eff[1] == pytest.approx(1.0)
         assert 0.9 < eff[2] < 1.0
-
-
-class TestShardedFusedMPC:
-    """The flagship composition (parallel/fused_fleet.py): the batched
-    fused Pallas solver under shard_map on the scenario axis, proven in
-    Pallas interpret mode on the 8-device virtual mesh. Parity bar: the
-    sharded solve matches the unsharded fused solver per scenario (f32
-    fusion-order drift only), and the psum fleet cost matches the mean."""
-
-    def test_sharded_matches_unsharded(self, mesh):
-        from manipulapy_tpu.mpc.fused_batch import build_batch_tracking_mpc
-        from manipulapy_tpu.parallel import build_sharded_batch_mpc
-
-        model = catalog.two_link_planar(dtype=jnp.float32)
-        B, H, n = 16, 10, 2
-        rng = np.random.default_rng(0)
-        x0 = jnp.asarray(rng.uniform(-0.3, 0.3, (B, 4)), jnp.float32)
-        goals = jnp.asarray(rng.uniform(-0.8, 0.8, (B, n)), jnp.float32)
-        us0 = jnp.zeros((B, H, n), jnp.float32)
-
-        smpc = build_sharded_batch_mpc(
-            model, mesh, goals, B, H, 0.02, iterations=3, interpret=True
-        )
-        us_s, xs_s, cost_s, fleet = smpc.solve(x0, us0)
-        assert us_s.shape == (B, H, n) and xs_s.shape == (B, H + 1, 2 * n)
-
-        ref = build_batch_tracking_mpc(model, goals, B, H, 0.02, iterations=3, interpret=True)
-        us_r, xs_r, cost_r = ref.solve(x0, us0)
-        np.testing.assert_allclose(np.asarray(cost_s), np.asarray(cost_r), rtol=1e-4)
-        np.testing.assert_allclose(np.asarray(us_s), np.asarray(us_r), atol=5e-3)
-        np.testing.assert_allclose(float(fleet), float(jnp.mean(cost_r)), rtol=1e-5)
-
-    def test_runtime_retarget_under_sharding(self, mesh):
-        from manipulapy_tpu.parallel import build_sharded_batch_mpc
-
-        model = catalog.two_link_planar(dtype=jnp.float32)
-        B, H, n = 8, 8, 2
-        g1 = jnp.zeros((B, n), jnp.float32)
-        g2 = jnp.full((B, n), 0.5, jnp.float32)
-        smpc = build_sharded_batch_mpc(
-            model, mesh, g1, B, H, 0.02, iterations=2, interpret=True
-        )
-        x0 = jnp.zeros((B, 2 * n), jnp.float32)
-        us0 = jnp.zeros((B, H, n), jnp.float32)
-        us_a, _, _, _ = smpc.solve(x0, us0)          # goal = origin, at origin
-        us_b, _, _, _ = smpc.solve(x0, us0, g2)      # re-targeted, same compile
-        assert float(jnp.max(jnp.abs(us_a))) < 1e-5  # already at goal
-        assert float(jnp.max(jnp.abs(us_b))) > 1e-3  # re-target drives torque
-
-    def test_batch_divisibility_validation(self, mesh):
-        from manipulapy_tpu.parallel import build_sharded_batch_mpc
-
-        model = catalog.two_link_planar(dtype=jnp.float32)
-        with pytest.raises(ValueError, match="divide"):
-            build_sharded_batch_mpc(
-                model, mesh, jnp.zeros(2), 12, 8, 0.02, interpret=True
-            )
-
-    @pytest.mark.slow
-    def test_fleet_mpc_round_fused_matches_ilqr(self, mesh):
-        """fleet_mpc_round(solver='fused_batch'): heterogeneous fleet on
-        the fused sharded solver matches the generic distributed round."""
-        from manipulapy_tpu.mpc import ILQRParams
-        from manipulapy_tpu.parallel import fleet_mpc_round, stack_models
-
-        models = [
-            catalog.two_link_planar(dtype=jnp.float32),
-            catalog.serial_chain(3, dtype=jnp.float32),
-        ]
-        fl = stack_models(models)
-        R, S, n_max, H = 2, 8, fl.num_joints, 8
-        rng = np.random.default_rng(0)
-        x0 = jnp.zeros((R, S, 2 * n_max), jnp.float32)
-        us0 = jnp.zeros((R, S, H, n_max), jnp.float32)
-        q_goals = jnp.asarray(
-            rng.uniform(-0.5, 0.5, (R, S, n_max)), jnp.float32
-        ) * jnp.asarray(np.asarray(fl.mask))[:, None, :]
-        params = ILQRParams(horizon=H, dt=0.02, iterations=2, line_search_steps=4)
-
-        us_f, costs_f, fc_f = fleet_mpc_round(
-            fl, mesh, x0, us0, q_goals, params, solver="fused_batch"
-        )
-        assert us_f.shape == (R, S, H, n_max)
-        # Padded joints exactly zero (two_link has n=2, fleet n_max=3).
-        assert float(jnp.max(jnp.abs(us_f[0, :, :, 2:]))) == 0.0
-
-        us_g, costs_g, fc_g = fleet_mpc_round(
-            fl, mesh, x0, us0, q_goals, params, solver="ilqr"
-        )
-        np.testing.assert_allclose(np.asarray(costs_f), np.asarray(costs_g), rtol=0.05)
-        np.testing.assert_allclose(float(fc_f), float(fc_g), rtol=0.05)

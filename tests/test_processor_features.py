@@ -79,7 +79,7 @@ class TestURDFToRobotModel:
 class TestFeatures:
     def test_get_available_features_keys(self):
         feats = mtpu.get_available_features()
-        for key in ("core", "simulation", "vision", "ml", "tpu", "mesh"):
+        for key in ("core", "simulation", "vision", "ml", "gpu", "mesh"):
             assert key in feats
         assert feats["core"] is True  # jax+numpy are always present here
 

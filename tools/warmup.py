@@ -1,13 +1,11 @@
 #!/usr/bin/env python3
-"""Cold-start eliminator: pre-compile the fused MPC solvers and ship
+"""Cold-start eliminator: pre-compile the tracking-MPC solvers and ship
 AOT executables.
 
-The remote-compile service this backend uses has no persistent cache, so
-a fresh process pays minutes-class first-solve latency on the fused
-Pallas solvers (``compile_budget_results.json``: 155 s cold build). This
-tool front-loads that cost ONCE and serializes the compiled executables
+A fresh process pays a whole compile before its first solve. This tool
+front-loads that cost ONCE and serializes the compiled executables
 (``manipulapy_tpu.utils.aot``); every later process loads them and
-reaches its first solve in well under a second.
+reaches its first solve without compiling.
 
 Usage::
 
@@ -18,8 +16,7 @@ Usage::
     python tools/warmup.py --robot panda --batch 1024 --horizon 50 --load
 
 ``--load`` prints one JSON line with the measured load + first-solve
-times (consumed by benchmarks/compile_budget.py's ``aot_first_solve``
-row).
+times.
 """
 
 import argparse
@@ -43,8 +40,7 @@ def prime(robot: str, batch: int, horizon: int, out_dir):
     import jax.numpy as jnp
 
     from manipulapy_tpu.models import catalog
-    from manipulapy_tpu.mpc.fused import build_tracking_mpc
-    from manipulapy_tpu.mpc.fused_batch import build_batch_tracking_mpc
+    from manipulapy_tpu.mpc import build_batch_tracking_mpc, build_tracking_mpc
     from manipulapy_tpu.utils import aot
 
     model = catalog.get_robot(robot, dtype=jnp.float32)
